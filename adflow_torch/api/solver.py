@@ -1,9 +1,10 @@
 """The user-facing solver class (counterpart of adflow_tpu/api/solver.py;
 reference class ``ADFLOW``, adflow/pyADflow.py:60).
 
-This slice of the port runs the steady Runge-Kutta branch of ``__call__``
-(``useANKSolver: False, useNKSolver: False``), ``evalFunctions``, residual
-and state access. The solver runs on ``cuda:0`` unless the caller passes
+The port runs the steady branches of ``__call__``: the ANK/NK driver
+(the default, solvers/newton.py) and the Runge-Kutta smoother
+(``useANKSolver: False, useNKSolver: False``); and ``evalFunctions``,
+residual and state access. The solver runs on ``cuda:0`` unless the caller passes
 another device (the tests pass ``device="cpu"``); it never falls back to
 the CPU on its own. Every branch and option that is not ported yet raises
 ``NotImplementedError`` naming its ROADMAP.md item.
@@ -331,18 +332,26 @@ class ADFLOW:
         deadline = (t0 + tl) if tl > 0.0 else None
 
         self._fmg_start(opt)
-        if bool(opt["useNKSolver"]) or bool(opt["useANKSolver"]):
-            raise _todo("the ANK/NK solver", "6")
-        if str(opt["MGCycle"]).lower() not in ("sg", "none", ""):
+        use_nk = bool(opt["useNKSolver"])
+        use_ank = bool(opt["useANKSolver"])
+        if use_nk or use_ank:
+            self._reject_unported_newton(opt, use_ank, use_nk)
+            from adflow_torch.solvers.newton import solve_newton_driver
+            self.w_list, info = solve_newton_driver(
+                self.w_list, self.metrics_list, self.topo, self.cfg,
+                self.ref, self.winf, opt, extras_list=self.extras_list,
+                monitor=monitor, deadline=deadline)
+        elif str(opt["MGCycle"]).lower() not in ("sg", "none", ""):
             raise _todo(f"multigrid cycle {opt['MGCycle']!r}", "10")
-        self.w_list, info = steady.solve_rk(
-            self.w_list, self.metrics_list, self.topo, self.cfg,
-            self.ref, self.winf,
-            cfl=float(opt["CFL"]), n_cycles=int(opt["nCycles"]),
-            l2_conv=float(opt["L2Convergence"]),
-            l2_conv_rel=float(opt["L2ConvergenceRel"]),
-            extras_list=self.extras_list, monitor=monitor,
-            smoother=str(opt["smoother"]), deadline=deadline)
+        else:
+            self.w_list, info = steady.solve_rk(
+                self.w_list, self.metrics_list, self.topo, self.cfg,
+                self.ref, self.winf,
+                cfl=float(opt["CFL"]), n_cycles=int(opt["nCycles"]),
+                l2_conv=float(opt["L2Convergence"]),
+                l2_conv_rel=float(opt["L2ConvergenceRel"]),
+                extras_list=self.extras_list, monitor=monitor,
+                smoother=str(opt["smoother"]), deadline=deadline)
         self._fresh_state = False
         self.solve_info = info
         ap.solveFailed = bool(info.failed)
@@ -351,6 +360,18 @@ class ADFLOW:
             print(f"  solve wall time: {time.time() - t0:.2f} s "
                   f"({info.iterations} iterations, "
                   f"R {info.total_r0:.3e} -> {info.total_r_final:.3e})")
+
+    @staticmethod
+    def _reject_unported_newton(opt, use_ank, use_nk):
+        """The parts of the ANK/NK branch that are not ported yet."""
+        if ((use_ank and str(opt["ANKGlobalPreconditioner"]).lower()
+             == "multigrid")
+                or (use_nk and str(opt["NKGlobalPreconditioner"]).lower()
+                    == "multigrid")):
+            raise _todo("the multigrid (AMG) global preconditioner", "10")
+        if use_nk and str(opt["precision"]).lower() == "mixed":
+            raise _todo("the f64 Newton continuation of precision='mixed'",
+                        "6")
 
     def _fmg_start(self, opt):
         """Full-multigrid start (reference: solvers.F90:63). With the

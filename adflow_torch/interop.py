@@ -32,6 +32,24 @@ def metrics_from_numpy(siE, sjE, skE, vol, xc_ext, device="cpu",
                           for a in (siE, sjE, skE, vol, xc_ext)))
 
 
+def line_pc_from_numpy(axes, mean, turb, dscalar, turb_scale=None,
+                       device="cpu", dtype=torch.float64):
+    """The port's ``LinePCData`` from the fields of the JAX package's one
+    (as numpy): ``mean`` a list of (L, D, U) per axis, ``turb`` a list of
+    (lt, dt, ut) or None per axis. The port keeps the factors of these
+    operators, which it computes here as ``build_line_pc`` does."""
+    from adflow_torch.solvers.linpc import line_pc_data
+
+    def ops(t):
+        return None if t is None else tuple(_tensor(a, device, dtype)
+                                            for a in t)
+
+    return line_pc_data(axes, [ops(t) for t in mean],
+                        [ops(t) for t in turb],
+                        _tensor(dscalar, device, dtype),
+                        None if turb_scale is None else tuple(turb_scale))
+
+
 def refstate_from_dict(fields) -> ReferenceState:
     """A ``ReferenceState`` from the fields of the JAX package's one
     (``dataclasses.asdict(ref)``); array fields become numpy arrays."""

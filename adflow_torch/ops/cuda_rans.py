@@ -24,22 +24,16 @@ from __future__ import annotations
 
 import ctypes
 import functools
-import hashlib
-import os
-import shutil
-import subprocess
 import types
-from pathlib import Path
 
 import torch
+
+from adflow_torch.ops import _nvcc
 
 # kernel launches made through ``fused_rans_residual`` (one per call on CUDA)
 LAUNCHES = 0
 
-_SRC = Path(__file__).resolve().parents[1] / "csrc" / "rans_residual.cu"
-BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "adflow_torch_kernels"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC")
+SRC = _nvcc.CSRC / "rans_residual.cu"
 
 # Operation count per evaluation (flop_count), from the arithmetic of the
 # plain version: per one-ring extended cell (derived state, sensor, three
@@ -52,38 +46,9 @@ FLOP_PER_FACE = 300
 FLOP_PER_CELL = 160
 
 
-def nvcc_path() -> str:
-    for cand in (shutil.which("nvcc"), "/usr/local/cuda/bin/nvcc"):
-        if cand and os.path.exists(cand):
-            return cand
-    raise RuntimeError("nvcc not found: the CUDA kernels are built with the "
-                       "CUDA toolkit on the machine that has the card")
-
-
-def library_path() -> Path:
-    """Where the shared library for the current source and flags goes."""
-    h = hashlib.sha256(_SRC.read_bytes() + " ".join(NVCC_FLAGS).encode())
-    return BUILD_DIR / f"librans_residual_{h.hexdigest()[:16]}.so"
-
-
-def build_command(out: Path):
-    return [nvcc_path(), *NVCC_FLAGS, "-o", str(out), str(_SRC)]
-
-
-def build() -> Path:
-    """Compile the kernel if this source has no library yet; return it."""
-    out = library_path()
-    if not out.exists():
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        subprocess.run(build_command(tmp), check=True)
-        os.replace(tmp, out)
-    return out
-
-
 @functools.lru_cache(maxsize=1)
 def _lib():
-    lib = ctypes.CDLL(str(build()))
+    lib = ctypes.CDLL(str(_nvcc.build(SRC)))
     fn = lib.rans_residual_launch
     fn.restype = ctypes.c_int
     fn.argtypes = ([ctypes.c_void_p] * 12 + [ctypes.c_int] * 3

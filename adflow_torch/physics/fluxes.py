@@ -12,8 +12,8 @@ Shapes for a block with (ni, nj, nk) interior cells:
   si: (ni+1, nj, nk, 3), sj/sk analogous
   returns residual contributions on the interior (ni, nj, nk, 5).
 
-Not ported: the low-speed preconditioner (``precon_mach`` must be 0), the
-coarse-level constant dissipation and ALE face velocities.
+Not ported: the low-speed preconditioner (``precon_mach`` must be 0) and
+ALE face velocities.
 """
 
 from __future__ import annotations
@@ -35,6 +35,14 @@ def _euler_flux(w, p, svec):
     fmom = m * q[..., None] + p[..., None] * svec
     fen = (w[..., IRHOE] + p) * q
     return torch.cat([fmass[..., None], fmom, fen[..., None]], dim=-1)
+
+
+def _abs(x):
+    """|x| with the derivative +1 at 0, the JAX package's convention (the
+    jvp of ``jnp.abs`` selects on x >= 0; ``torch.abs`` has 0 there). The
+    two differ where a state is exactly symmetric, as a free-stream start
+    is: zero spanwise velocity on spanwise faces, uniform pressure."""
+    return torch.where(x >= 0, x, -x)
 
 
 def _shift(a, axis, lo, hi):
@@ -64,7 +72,7 @@ def spectral_radii(w, p, metrics, precon_mach: float = 0.0
         s_avg = 0.5 * (_shift(sE, axis, 0, -1) + _shift(sE, axis, 1, 0))
         un = torch.sum(vel * s_avg, dim=-1)
         smag = torch.linalg.norm(s_avg, dim=-1)
-        return torch.abs(un) + c * smag
+        return _abs(un) + c * smag
 
     siE, sjE, skE = extended_face_areas(metrics)
     return rad(siE, 0), rad(sjE, 1), rad(skE, 2)
@@ -84,13 +92,16 @@ def scaled_diss_radii(radI, radJ, radK, exponent: float):
 
 
 def inviscid_residual(w, p, metrics, vis2: float, vis4: float,
-                      diss_exponent: float = 0.67, por=None):
+                      diss_exponent: float = 0.67, por=None,
+                      const_diss: bool = False):
     """Central + JST residual on the interior, positive = net outflow.
 
     ``por``: optional per-axis face porosity tensors (1 = normal flux, 0 =
     solid-wall face). At zero-porosity faces the convective velocity and the
     artificial dissipation are switched off so only the pressure acts — the
     reference's boundFlux treatment (fluxes.F90:60-77).
+    ``const_diss``: the coarse-level dissipation, a constant vis2
+    2nd-difference without the sensor and without the 4th difference.
 
     Returns R with shape (ni, nj, nk, 5).
     """
@@ -104,7 +115,8 @@ def inviscid_residual(w, p, metrics, vis2: float, vis4: float,
     for axis, (s, srad) in enumerate(
             [(metrics.si, sradI), (metrics.sj, sradJ), (metrics.sk, sradK)]):
         mask = None if por is None else por[axis]
-        flux = _face_flux_axis(w, p, wd, nu, s, srad, axis, vis2, vis4, mask)
+        flux = _face_flux_axis(w, p, wd, nu, s, srad, axis, vis2, vis4, mask,
+                               const_diss)
         dR = _shift(flux, axis, 1, 0) - _shift(flux, axis, 0, -1)
         R = dR if R is None else R + dR
     return R
@@ -118,7 +130,7 @@ def _pressure_sensor(p):
         pm = _shift(p, axis, 0, -2)
         p0 = _shift(p, axis, 1, -1)
         pp = _shift(p, axis, 2, 0)
-        s = torch.abs(pp - 2.0 * p0 + pm) / (pp + 2.0 * p0 + pm)
+        s = _abs(pp - 2.0 * p0 + pm) / (pp + 2.0 * p0 + pm)
         idx = [slice(1, -1)] * 3
         idx[axis] = slice(None)
         s = s[tuple(idx)]
@@ -126,7 +138,8 @@ def _pressure_sensor(p):
     return nu
 
 
-def _face_flux_axis(w, p, wd, nu, s, srad, axis, vis2, vis4, por=None):
+def _face_flux_axis(w, p, wd, nu, s, srad, axis, vis2, vis4, por=None,
+                    const_diss: bool = False):
     """Total face flux (central - dissipation) along one axis.
 
     Face f (0..n_ax) separates interior cells f-1, f; in padded coords the
@@ -163,9 +176,15 @@ def _face_flux_axis(w, p, wd, nu, s, srad, axis, vis2, vis4, por=None):
     nuA = nu[tuple(et)]
     srA = srad[tuple(et)]
     lam = 0.5 * (_shift(srA, axis, 0, -1) + _shift(srA, axis, 1, 0))
-    eps2 = vis2 * torch.maximum(_shift(nuA, axis, 0, -1),
-                                _shift(nuA, axis, 1, 0))
-    eps4 = torch.clamp(vis4 - eps2, min=0.0)
+    if const_diss:
+        # coarse-grid dissipation: constant 2nd difference only, no sensor
+        # (fluxes.F90 inviscidDissFluxScalarCoarse:4977, vis2Coarse)
+        eps2 = torch.full_like(lam, vis2)
+        eps4 = torch.zeros_like(lam)
+    else:
+        eps2 = vis2 * torch.maximum(_shift(nuA, axis, 0, -1),
+                                    _shift(nuA, axis, 1, 0))
+        eps4 = torch.clamp(vis4 - eps2, min=0.0)
     if por is not None:
         eps2 = eps2 * por
         eps4 = eps4 * por

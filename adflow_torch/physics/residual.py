@@ -4,7 +4,8 @@ adflow_tpu/physics/residual.py).
 Pipeline per evaluation:
   physical BCs -> b2b halo exchange -> physical BCs (corner fix-up)
   -> per block: the fused RANS-SA kernel (ops/cuda_rans.py) on CUDA f32,
-     else inviscid central+JST fluxes [-> viscous -> turbulence] -> R.
+     else inviscid central+JST fluxes (the inviscid kernel,
+     ops/cuda_inviscid.py, on CUDA f32) [-> viscous -> turbulence] -> R.
 """
 
 from __future__ import annotations
@@ -47,8 +48,8 @@ class ProblemConfig:
     use_qcr: bool = False
     coarse_level: bool = False
     ls_precon_mach: float = 0.0
-    # route RANS-SA central-scalar f32 CUDA evaluations through the fused
-    # kernel (reference useBlockettes, NKSolver/blockette.F90:70)
+    # route central-scalar f32 CUDA evaluations through the fused kernels
+    # (reference useBlockettes, NKSolver/blockette.F90:70)
     use_kernels: bool = False
 
     @property
@@ -170,6 +171,16 @@ def _kernel_applies(w, metrics, cfg, extras, por) -> bool:
             and "act_src_momentum" not in extras)
 
 
+def _inviscid_kernel_applies(w, metrics, cfg, por) -> bool:
+    """The conditions of adflow_tpu/physics/residual.py:249-250, plus a CUDA
+    tensor and no low-speed preconditioner: the JAX branch ignores
+    ``ls_precon_mach`` while its plain path honours it, so the port keeps
+    such runs on the plain path."""
+    return (cfg.use_kernels and not cfg.coarse_level and por is not None
+            and metrics.vfIE is None and w.dtype == torch.float32
+            and w.is_cuda and cfg.ls_precon_mach == 0.0)
+
+
 def block_residual(w, metrics: BlockMetrics, cfg: ProblemConfig,
                    ref: ReferenceState, extras: Optional[dict] = None,
                    por=None):
@@ -187,7 +198,7 @@ def block_residual(w, metrics: BlockMetrics, cfg: ProblemConfig,
             ref.mu_inf, ref.t_inf_dim, cfg.use_ft2, cfg.turb_scales[0])
 
     if (not cfg.discretization.startswith("central")
-            or "matrix" in cfg.discretization or cfg.coarse_level):
+            or "matrix" in cfg.discretization):
         raise NotImplementedError(
             f"discretization {cfg.discretization!r} (ROADMAP.md queue 1 "
             f"item 9)")
@@ -195,10 +206,18 @@ def block_residual(w, metrics: BlockMetrics, cfg: ProblemConfig,
         raise NotImplementedError("actuator sources (ROADMAP.md queue 1 "
                                   "item 9)")
     p = pressure(w)
-    # Euler and laminar runs take this plain path until the inviscid kernel
-    # (K2, adflow_tpu/ops/pallas_residual.py) is ported
-    r = inviscid_residual(w, p, metrics, cfg.vis2, cfg.vis4,
-                          cfg.diss_exponent, por=por)
+    if _inviscid_kernel_applies(w, metrics, cfg, por):
+        # central + JST mean-flow part of Euler and laminar residuals (and
+        # of RANS ones K1 does not cover) through the inviscid kernel
+        from adflow_torch.ops.cuda_inviscid import fused_inviscid_residual
+        w5 = w[..., :5].contiguous() if w.shape[-1] > 5 else w
+        r = fused_inviscid_residual(
+            w5, p, metrics.siE, metrics.sjE, metrics.skE, por[0], por[1],
+            por[2], cfg.vis2, cfg.vis4, cfg.diss_exponent)
+    else:
+        r = inviscid_residual(w, p, metrics, cfg.vis2, cfg.vis4,
+                              cfg.diss_exponent, por=por,
+                              const_diss=cfg.coarse_level)
     if cfg.viscous:
         from adflow_torch.physics.viscous import viscous_residual
         r = r + viscous_residual(w, p, metrics, cfg, ref, extras=extras)

@@ -26,6 +26,8 @@ class SolveInfo(NamedTuple):
     total_r0: float
     total_r_final: float
     history: np.ndarray  # (n, 2): mean-flow and turb residual norms
+    # per ANK/NK step records of the Newton driver (solvers/newton.py)
+    steps: tuple = ()
 
 
 def solve_rk(w_list, metrics_list, topo, cfg, ref, winf,

@@ -1,4 +1,5 @@
-"""Port parity for the slice as a whole: the steady RANS-SA Runge-Kutta solve.
+"""Port parity for the steady RANS-SA Runge-Kutta solve (the ANK solve is in
+tests/test_torch_ank_solve.py).
 
 Both packages run ``ADFLOW`` on ``wing_omesh(16, 8, 8, viscous=True)`` with
 RANS, ``useANKSolver=False`` and 25 RK cycles in float64 on the CPU. The
@@ -121,8 +122,8 @@ def test_default_device_needs_a_card():
 
 
 @pytest.mark.parametrize("branch,opts", [
-    ("ank", {"useANKSolver": True}),
-    ("nk", {"useNKSolver": True}),
+    ("ank", {"useANKSolver": True, "ANKGlobalPreconditioner": "multigrid"}),
+    ("nk", {"useNKSolver": True, "precision": "mixed"}),
     ("unsteady", {"equationMode": "unsteady"}),
     ("multigrid", {"MGCycle": "2w"}),
 ])
@@ -136,7 +137,8 @@ def test_unported_branches_raise(branch, opts):
 
 def test_port_imports_no_jax():
     code = ("import sys, adflow_torch.api.solver, adflow_torch.interop, "
-            "adflow_torch.ops.cuda_rans; "
+            "adflow_torch.ops.cuda_rans, adflow_torch.ops.cuda_inviscid, "
+            "adflow_torch.solvers.newton; "
             "bad = [m for m in sys.modules "
             "if m.split('.')[0] in ('jax', 'jaxlib', 'adflow_tpu')]; "
             "assert not bad, bad")
