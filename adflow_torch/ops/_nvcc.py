@@ -5,6 +5,7 @@ Each source becomes its own library, named by the hash of the source and
 the flags, under ``build/adflow_torch_kernels/`` at the repository root (the
 directory ``.gitignore`` lists). A library is built once, at first use, on
 the machine that has the card; nothing here runs when a module is imported.
+What nvcc prints goes to a ``.log`` beside the library (``build_log``).
 """
 
 from __future__ import annotations
@@ -13,6 +14,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import sys
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
@@ -49,14 +51,28 @@ def build_all(srcs) -> list:
         if not out.exists():
             BUILD_DIR.mkdir(parents=True, exist_ok=True)
             tmp = out.with_suffix(f".{os.getpid()}.tmp")
-            jobs.append((Path(src).name, tmp, out,
-                         subprocess.Popen(build_command(Path(src), tmp))))
-    failed = [name for name, _, _, proc in jobs if proc.wait() != 0]
+            jobs.append((Path(src).name, tmp, out, subprocess.Popen(
+                build_command(Path(src), tmp), stdout=subprocess.PIPE,
+                stderr=subprocess.STDOUT, text=True)))
+    failed = []
+    for name, _, out, proc in jobs:
+        log = proc.communicate()[0]
+        out.with_suffix(".log").write_text(log)
+        if proc.returncode != 0:
+            failed.append(name)
+            print(log, file=sys.stderr)
     if failed:
         raise RuntimeError(f"nvcc failed to build {failed}")
     for _, tmp, out, _ in jobs:
         os.replace(tmp, out)
     return outs
+
+
+def build_log(src: Path) -> str:
+    """What nvcc printed when it built ``src`` (``-Xptxas -v``: registers,
+    spills and shared memory of each kernel); empty if it has not."""
+    log = library_path(Path(src)).with_suffix(".log")
+    return log.read_text() if log.exists() else ""
 
 
 def build(src: Path) -> Path:

@@ -2,16 +2,22 @@
 
 Replaces the TPU kernel ``adflow_tpu/ops/pallas_rans.py::_kernel`` (entry
 ``fused_rans_residual``, pallas_call at :512). The CUDA source is
-``adflow_torch/csrc/rans_residual.cu``: pass 1 writes 27 derived fields per
-one-ring extended cell to a scratch buffer, pass 2 computes each interior
-cell's six face fluxes and its SA source and writes all six channels.
+``adflow_torch/csrc/rans_residual.cu``: one launch of one kernel, one pass,
+no scratch in device memory. Each thread block owns a j-k tile of 8 x 16
+interior columns, two threads a column, and marches along i over a segment
+of ``SI`` planes: each padded plane of ``w`` lands by ``cp.async`` one plane
+ahead and is converted once into a ring of four planes of primitive cells
+in shared memory; the derived fields of the current and the next extended
+plane sit in shared memory; each j- and k-face is computed once into shared
+memory, each i-face once in registers and carried down the march.
+``k1_tile_plan`` computes the segment, the grid, the shared bytes and the
+copy width, so that the CPU tests check what the CUDA code relies on.
 
 Bound on the H100: device-memory bytes. One evaluation at 256x64x64 must
 read its inputs once and write its output once, about 130 MB (39 us at
-3.35 TB/s), against about 1.6 GFLOP (23 us at 67 TFLOP/s f32). This first
-version is the simple, deterministic design (no atomics, no shared-memory
-tiles); it moves the scratch round trip and neighbour re-reads on top of
-the bound. ``chip_smoke.py`` measures it against the bound.
+3.35 TB/s), against about 1.6 GFLOP (23 us at 67 TFLOP/s f32). No tensor
+core applies: the kernel is a stencil with no matrix product.
+``chip_smoke.py`` measures it against the bound.
 
 On CPU tensors the wrapper computes the plain version
 (``rans_residual_reference``). On CUDA tensors it launches the kernel or
@@ -25,6 +31,7 @@ from __future__ import annotations
 import ctypes
 import functools
 import types
+from typing import NamedTuple
 
 import torch
 
@@ -46,16 +53,87 @@ FLOP_PER_FACE = 300
 FLOP_PER_CELL = 160
 
 
+# The tile rans_residual.cu is built for: TJ x TK columns, two threads a
+# column, K1_BLOCKS_PER_SM blocks on an SM (its __launch_bounds__).
+K1_TILE = (8, 16)
+K1_THREADS = 256
+K1_BLOCKS_PER_SM = 2
+# shared memory of one block, in floats: one raw plane of w, CELL_PLANES
+# planes of N_CELL floats a cell, two planes of N_DERIVED derived fields,
+# N_FACE floats per j- and k-face of a plane, one SA source a column
+CELL_PLANES, N_CELL, N_DERIVED, N_FACE = 4, 11, 22, 12
+SMEM_LIMIT = 232_448      # bytes a block may use on Hopper
+N_SM = 132                # SMs of an H100 SXM
+MIN_SEGMENT = 4           # the warm-up plane costs at most a quarter
+
+
+class K1Plan(NamedTuple):
+    """How one launch covers a block: ``tj x tk`` columns per thread block,
+    ``si`` planes per segment; grid (k tiles, j tiles, segments)."""
+    tj: int
+    tk: int
+    si: int
+    grid: tuple
+    threads: int
+    smem_bytes: int
+    copy_width: int
+
+
+def _segment(ni, tiles, per_wave):
+    """The segment length that minimizes waves x (planes + warm-up) a block:
+    the blocks of one wave share their SMs, so a wave takes about as long as
+    one block's march."""
+    return min(range(min(MIN_SEGMENT, ni), ni + 1),
+               key=lambda si: (-(-(-(-ni // si) * tiles) // per_wave)
+                               * (si + 1), si))
+
+
+def k1_tile_plan(ni, nj, nk, si=None, n_sm=N_SM):
+    """The launch plan of K1 for a block of ``ni x nj x nk`` interior cells
+    on a card with ``n_sm`` SMs.
+
+    Thread block (x, y, z) owns interior columns j in [y tj, y tj + tj) and
+    k in [x tk, x tk + tk) of the segment i in [z si, z si + si), each range
+    cut at the block's edge. Without ``si``, the segment fills whole waves
+    of resident blocks (``_segment``). Rows of the padded ``w`` plane are
+    copied 16 bytes at a time when every row the kernel copies starts
+    16-byte aligned and lies inside the block (from an aligned base
+    pointer), else 4 bytes: a row starts at cell ``(I (nj+4) + J)(nk+4) +
+    k0``, 24 bytes a cell, so that needs ``nk + 4`` even (k0 is a multiple of
+    the even ``tk``) and no ragged k tile."""
+    tj, tk = K1_TILE
+    grid = (-(-nk // tk), -(-nj // tj))
+    if si is None:
+        si = _segment(ni, grid[0] * grid[1], n_sm * K1_BLOCKS_PER_SM)
+    if si < 1:
+        raise ValueError(f"segment of {si} planes")
+    ring_cells = (tj + 4) * (tk + 4)
+    floats = (ring_cells * 6 + CELL_PLANES * N_CELL * ring_cells
+              + 2 * N_DERIVED * (tj + 2) * (tk + 2)
+              + N_FACE * ((tj + 1) * tk + tj * (tk + 1)) + tj * tk)
+    wide = (nk + 4) % 2 == 0 and nk % tk == 0
+    return K1Plan(tj, tk, si, (*grid, -(-ni // si)), K1_THREADS, 4 * floats,
+                  16 if wide else 4)
+
+
+def ptxas_report():
+    """The lines of K1's build log that give its registers, spills and
+    shared memory (``-Xptxas -v``)."""
+    return [ln.strip() for ln in _nvcc.build_log(SRC).splitlines()
+            if "Compiling entry" in ln or "registers" in ln or "spill" in ln]
+
+
 @functools.lru_cache(maxsize=1)
 def _lib():
     lib = ctypes.CDLL(str(_nvcc.build(SRC)))
     fn = lib.rans_residual_launch
     fn.restype = ctypes.c_int
-    fn.argtypes = ([ctypes.c_void_p] * 12 + [ctypes.c_int] * 3
+    # w6 .. porK, out; ni, nj, nk, tj, tk, threads, si, copy_width,
+    # smem_bytes; vis2, vis4, expo, mu_inf, s_suth; use_ft2, turb_scale,
+    # stream
+    fn.argtypes = ([ctypes.c_void_p] * 11 + [ctypes.c_int] * 9
                    + [ctypes.c_float] * 5 + [ctypes.c_int, ctypes.c_float,
                                              ctypes.c_void_p])
-    lib.rans_residual_scratch_fields.restype = ctypes.c_int
-    lib.rans_residual_scratch_fields.argtypes = []
     return lib
 
 
@@ -99,30 +177,38 @@ def check_operands(tensors):
 
 
 def _launch(tensors, vis2, vis4, expo, mu_inf, t_inf_dim, use_ft2,
-            turb_scale):
-    """Check the operands and launch the kernel; returns (ni, nj, nk, 6)."""
+            turb_scale, plan=None):
+    """Check the operands and launch the kernel with ``plan`` (default
+    ``k1_tile_plan``); returns (ni, nj, nk, 6)."""
     global LAUNCHES
     w6 = tensors[0]
     if not w6.is_cuda:
         raise ValueError(f"w6: on {w6.device}, the kernel runs on CUDA")
     ni, nj, nk = check_operands(tensors)
+    plan = plan or k1_tile_plan(ni, nj, nk, n_sm=_n_sm(w6.device))
+    # the plan's 16-byte copies assume an aligned base
+    width = plan.copy_width if w6.data_ptr() % 16 == 0 else 4
     lib = _lib()
-    n_ext = (ni + 2) * (nj + 2) * (nk + 2)
     with torch.cuda.device(w6.device):
-        scratch = torch.empty(lib.rans_residual_scratch_fields() * n_ext,
-                              dtype=torch.float32, device=w6.device)
         out = torch.empty((ni, nj, nk, 6), dtype=torch.float32,
                           device=w6.device)
         stream = torch.cuda.current_stream(w6.device).cuda_stream
         err = lib.rans_residual_launch(
-            *(t.data_ptr() for t in tensors), scratch.data_ptr(),
-            out.data_ptr(), ni, nj, nk, float(vis2), float(vis4), float(expo),
-            float(mu_inf), float(_s_suth(t_inf_dim)), int(bool(use_ft2)),
-            float(turb_scale), stream)
+            *(t.data_ptr() for t in tensors), out.data_ptr(), ni, nj, nk,
+            plan.tj, plan.tk, plan.threads, plan.si, width,
+            plan.smem_bytes, float(vis2),
+            float(vis4), float(expo), float(mu_inf),
+            float(_s_suth(t_inf_dim)), int(bool(use_ft2)), float(turb_scale),
+            stream)
     if err != 0:
         raise RuntimeError(f"rans_residual_launch failed: CUDA error {err}")
     LAUNCHES += 1
     return out
+
+
+@functools.lru_cache(maxsize=None)
+def _n_sm(device):
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def _s_suth(t_inf_dim):

@@ -5,13 +5,15 @@
 
 Run from the root of the repository on a machine with a CUDA card and the
 CUDA toolkit. It builds the two kernels with nvcc, one process each, started
-together: the fused RANS-SA residual (K1, adflow_torch/csrc/rans_residual.cu)
-and the central + JST inviscid residual (K2,
+together: the fused RANS-SA residual (K1, adflow_torch/csrc/rans_residual.cu,
+one pass that marches along i) and the central + JST inviscid residual (K2,
 adflow_torch/csrc/inviscid_residual.cu). Then, each phase timed:
-  [1]-[8]  K1 against its plain version and its gradient; the steady
+  [1]-[8]  K1 against its plain version, two of its launches against each
+           other (bitwise), and its gradient; the steady
            RANS-SA Runge-Kutta solve of the 1.05 M-cell wing O-mesh through
-           ``ADFLOW`` (a path of its own, K1 launches counted); K1's times
-           and one RK cycle's breakdown;
+           ``ADFLOW`` (a path of its own, K1 launches counted); K1's tile
+           plan, registers and shared bytes, its times and one RK cycle's
+           breakdown;
   [9]-[11] K2 against its plain version; jvp and vjp through both kernels'
            autograd.Functions on the card; a small Euler ANK solve on the
            card against the CPU;
@@ -29,12 +31,13 @@ no result.
 from __future__ import annotations
 
 import json
-import subprocess
 import sys
 import time
 
 import numpy as np
 import torch
+
+from adflow_torch.utils.timing import card_line, time_ms
 
 # the flagship: the M6-class wing O-mesh of bench.py:105-108 at M6 conditions
 FULL_DIMS = (256, 64, 64)
@@ -67,13 +70,6 @@ PEAKS = (("H100 PCIe", 2.0e12, 51e12), ("H100 NVL", 3.9e12, 60e12),
          ("H100", 3.35e12, 67e12))
 
 
-def card_line() -> str:
-    return subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True).stdout.strip().splitlines()[0]
-
-
 def peaks(name: str):
     for key, bw, flops in PEAKS:
         if key in name:
@@ -102,6 +98,18 @@ def compare_kernel(label, tensors, consts, rtol):
     assert bool(torch.isfinite(got).all()), "kernel output not finite"
     assert max(rel) < rtol, f"K1 disagrees with its plain version: {rel}"
     return max(rel), abs_err
+
+
+def check_bitwise(tensors, consts):
+    """Two K1 launches on the same inputs give the same bits: every face is
+    computed once and each cell sums its faces in a fixed order."""
+    from adflow_torch.ops import cuda_rans
+    a = cuda_rans.fused_rans_residual(*tensors, *consts)
+    b = cuda_rans.fused_rans_residual(*tensors, *consts)
+    torch.cuda.synchronize()
+    same = bool(torch.equal(a, b))
+    print(f"  two K1 launches on {tuple(a.shape[:3])}: bitwise equal {same}")
+    assert same, "K1 launches differ"
 
 
 def check_gradient(tensors, consts):
@@ -615,27 +623,6 @@ def cycle_breakdown(solver):
     profile_device(two_cycles, "2 cycles")
 
 
-def time_ms(fn, reps=20, warmup=3):
-    """Median time of one call, by CUDA events around each call. The calls
-    are queued back to back and synchronised once at the end, so where the
-    host launches faster than the device runs (a kernel), each pair of
-    events holds device time only; where the host is slower (a chain of
-    small launches), it holds the host's pace."""
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    events = []
-    for _ in range(reps):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        events.append((start, end))
-    torch.cuda.synchronize()
-    return float(np.median([s.elapsed_time(e) for s, e in events]))
-
-
 class Phases:
     """Prints each phase's heading and, at the next one, its wall time."""
 
@@ -667,10 +654,12 @@ def main() -> int:
     for lib in _nvcc.build_all([cuda_rans.SRC, cuda_inviscid.SRC]):
         print(f"  built {lib.relative_to(_nvcc.BUILD_DIR.parents[1])}")
 
-    phase("[2] K1 against its plain version on small blocks")
+    phase("[2] K1 against its plain version on small blocks; two launches "
+          "bitwise equal")
     for dims in ((24, 12, 8), (23, 11, 7)):
         tensors, consts = cuda_rans.sample_operands(dims, "cuda:0")
         compare_kernel("x".join(map(str, dims)), tensors, consts, SMALL_RTOL)
+    check_bitwise(tensors, consts)
 
     phase("[3] gradient through the kernel's autograd.Function")
     check_gradient(*cuda_rans.sample_operands((24, 12, 8), "cuda:0"))
@@ -690,7 +679,14 @@ def main() -> int:
     tensors, consts = main_path_operands(solver)
     max_rel, max_abs, flux_rel = compare_post_solve(tensors, consts)
 
-    phase("[7] K1 times (CUDA events, median of 20 after warm-up)")
+    phase("[7] K1's plan and build, its times (CUDA events, median of 20 "
+          "after warm-up)")
+    plan = cuda_rans.k1_tile_plan(
+        ni, nj, nk, n_sm=torch.cuda.get_device_properties(0)
+        .multi_processor_count)
+    print(f"  tile plan at {ni}x{nj}x{nk}: {plan}")
+    for line in cuda_rans.ptxas_report():
+        print(f"  {line}")
     k1_times = kernel_times(
         "K1", cuda_rans.fused_rans_residual,
         cuda_rans.rans_residual_reference, tensors, consts,
@@ -742,6 +738,7 @@ def main() -> int:
         {"name": "fused_rans_residual", "route": "cuda",
          "source": "adflow_torch/csrc/rans_residual.cu",
          "replaces": "adflow_tpu/ops/pallas_rans.py:58",
+         "design": "one pass, i-march",
          "launches": k1_rk + k1_ank,
          "launches_by_path": {"rk_rans_wing_256x64x64": k1_rk,
                               "ank_rans_wing_64x24x16": k1_ank},

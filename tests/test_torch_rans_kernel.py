@@ -4,10 +4,14 @@ On the CPU: the port's plain version in float32 against the JAX package's
 Pallas kernel run in interpret mode (``_pallas_impl``, as
 tests/test_pallas_rans.py runs it) to 2e-5 relative per channel, the
 wrapper's CPU route, its operand checks, and the ``autograd.Function``'s
-backward and jvp through the plain version. On a card (marker ``cuda``,
-skipped without one): the CUDA kernel against the plain version at 2e-5 per
-channel, on the test_pallas_rans.py wing and on a block whose sizes are
-multiples of no block size.
+backward and jvp through the plain version, and the kernel's tile plan
+(``k1_tile_plan``: every interior cell in exactly one block's tile and
+segment, the shared bytes, the copy width against the row alignment). On a
+card (marker ``cuda``, skipped without one): the CUDA kernel against the
+plain version at 2e-5 per channel, on the test_pallas_rans.py wing, on
+blocks whose sizes are multiples of no tile size, with segments that do
+not divide ni and one longer than the block; and two launches bitwise
+equal.
 
 JAX is imported inside the one test that runs it, so the card tests run on
 a machine without JAX:
@@ -107,8 +111,71 @@ def test_autograd_function_derivatives(monkeypatch):
     assert float(torch.abs(vjp_p).max()) > 0.0
 
 
+PLAN_DIMS = [(24, 12, 8), (23, 11, 7), (2, 3, 5), (256, 64, 64)]
+
+
+@pytest.mark.parametrize("si", [None, 5])
+@pytest.mark.parametrize("dims", PLAN_DIMS)
+def test_tile_plan_covers_each_cell_once(dims, si):
+    ni, nj, nk = dims
+    plan = cuda_rans.k1_tile_plan(ni, nj, nk, si=si)
+    assert plan.threads == 2 * plan.tj * plan.tk
+    cover = np.zeros(dims, np.int32)
+    gx, gy, gz = plan.grid
+    for z in range(gz):
+        for y in range(gy):
+            for x in range(gx):
+                cells = cover[z * plan.si:(z + 1) * plan.si,
+                              y * plan.tj:(y + 1) * plan.tj,
+                              x * plan.tk:(x + 1) * plan.tk]
+                assert cells.size > 0, (x, y, z)
+                cells += 1
+    assert (cover == 1).all()
+
+
+def test_tile_plan_segment_fills_waves():
+    """At the main path's size the segment makes the blocks one wave of two
+    blocks on each of 132 SMs (measured best on the card, PERF.md)."""
+    plan = cuda_rans.k1_tile_plan(256, 64, 64)
+    n_blocks = plan.grid[0] * plan.grid[1] * plan.grid[2]
+    assert plan.si == 32 and n_blocks <= 2 * 132
+    assert cuda_rans.k1_tile_plan(3, 11, 7).si == 3
+
+
+def test_tile_plan_shared_bytes():
+    """The shared memory fits a block, and the blocks per SM that its
+    __launch_bounds__ asks for fit the SM's 228 KB (1 KB of it reserved per
+    block)."""
+    plan = cuda_rans.k1_tile_plan(256, 64, 64)
+    assert plan.smem_bytes <= cuda_rans.SMEM_LIMIT
+    assert cuda_rans.K1_BLOCKS_PER_SM * (plan.smem_bytes + 1024) <= 233_472
+    assert plan.smem_bytes % 16 == 0
+    assert plan.smem_bytes == 93_632
+
+
+@pytest.mark.parametrize("dims", PLAN_DIMS)
+def test_tile_plan_copy_width_divides_row_alignment(dims):
+    """Every row of w the kernel copies starts at a byte offset, and spans a
+    byte count, that the copy width divides; 16-byte rows lie inside the
+    block. The main path's 256x64x64 gets 16-byte copies."""
+    ni, nj, nk = dims
+    plan = cuda_rans.k1_tile_plan(ni, nj, nk)
+    width = plan.copy_width
+    rows = np.arange((ni + 4) * (nj + 4), dtype=np.int64)[:, None]
+    k0 = np.arange(plan.grid[0], dtype=np.int64)[None, :] * plan.tk
+    starts = (rows * (nk + 4) + k0) * 24
+    assert (starts % width == 0).all()
+    if width == 16:
+        assert (plan.tk + 4) * 24 % 16 == 0
+        assert (k0 + plan.tk + 4 <= nk + 4).all()
+    else:
+        assert width == 4
+    assert (width == 16) == (dims == (256, 64, 64))
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("dims", [(24, 12, 8), (23, 11, 7)])
+@pytest.mark.parametrize("dims", [(24, 12, 8), (23, 11, 7), (37, 19, 33),
+                                  (9, 8, 16)])
 def test_kernel_matches_plain_on_card(cuda_device, dims):
     tensors, consts = cuda_rans.sample_operands(dims, cuda_device)
     before = cuda_rans.LAUNCHES
@@ -118,6 +185,31 @@ def test_kernel_matches_plain_on_card(cuda_device, dims):
     want = cuda_rans.rans_residual_reference(*tensors, *consts)
     errs = _rel_per_channel(want.cpu().numpy(), got.cpu().numpy())
     assert max(errs) < KERNEL_RTOL, errs
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dims,si", [((37, 19, 33), 1), ((37, 19, 33), 5),
+                                     ((9, 8, 16), 16)])
+def test_kernel_segments_match_plain_on_card(cuda_device, dims, si):
+    """Segments that do not divide ni, down to one plane each, and one
+    longer than the block (with 16-byte copies)."""
+    tensors, consts = cuda_rans.sample_operands(dims, cuda_device)
+    plan = cuda_rans.k1_tile_plan(*dims, si=si)
+    assert (plan.copy_width == 16) == (dims == (9, 8, 16))
+    got = cuda_rans._launch(tensors, *consts, plan=plan)
+    torch.cuda.synchronize()
+    want = cuda_rans.rans_residual_reference(*tensors, *consts)
+    errs = _rel_per_channel(want.cpu().numpy(), got.cpu().numpy())
+    assert max(errs) < KERNEL_RTOL, errs
+
+
+@pytest.mark.cuda
+def test_kernel_launches_bitwise_equal_on_card(cuda_device):
+    tensors, consts = cuda_rans.sample_operands((37, 19, 33), cuda_device)
+    a = cuda_rans.fused_rans_residual(*tensors, *consts)
+    b = cuda_rans.fused_rans_residual(*tensors, *consts)
+    torch.cuda.synchronize()
+    assert torch.equal(a, b)
 
 
 @pytest.mark.cuda
