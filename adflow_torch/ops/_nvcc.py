@@ -1,15 +1,20 @@
 """Build the kernel sources of ``adflow_torch/csrc`` into shared libraries
-with ``nvcc``; the wrappers load them with ``ctypes``.
+with ``nvcc``; the wrappers load them with ``ctypes``. Also what the two
+i-marching kernels' launch plans share (``segment``, ``n_sm``, the card's
+limits).
 
 Each source becomes its own library, named by the hash of the source and
 the flags, under ``build/adflow_torch_kernels/`` at the repository root (the
-directory ``.gitignore`` lists). A library is built once, at first use, on
-the machine that has the card; nothing here runs when a module is imported.
-What nvcc prints goes to a ``.log`` beside the library (``build_log``).
+directory ``.gitignore`` lists). Each source is self-contained (it includes
+no header of ``csrc/``), so the hash of its own bytes names its build. A
+library is built once, at first use, on the machine that has the card;
+nothing here runs when a module is imported. What nvcc prints goes to a
+``.log`` beside the library (``build_log``, ``ptxas_report``).
 """
 
 from __future__ import annotations
 
+import functools
 import hashlib
 import os
 import shutil
@@ -18,6 +23,11 @@ import sys
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
+SMEM_LIMIT = 232_448      # bytes a block may use on Hopper
+SM_SMEM = 233_472         # bytes an SM shares among its blocks (228 KB)
+SMEM_RESERVED = 1024      # bytes the runtime reserves per block
+N_SM = 132                # SMs of an H100 SXM
+MIN_SEGMENT = 4           # the warm-up plane costs at most a quarter
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "adflow_torch_kernels"
 # -Xptxas -v prints each kernel's registers, shared memory and spills
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -78,3 +88,28 @@ def build_log(src: Path) -> str:
 def build(src: Path) -> Path:
     """Compile ``src`` if it has no library yet; return the library."""
     return build_all([src])[0]
+
+
+def ptxas_report(src: Path) -> list:
+    """The lines of ``src``'s build log that give its kernels' registers,
+    spills and shared memory (``-Xptxas -v``)."""
+    return [ln.strip() for ln in build_log(src).splitlines()
+            if "Compiling entry" in ln or "registers" in ln or "spill" in ln]
+
+
+@functools.lru_cache(maxsize=None)
+def segment(ni, tiles, per_wave):
+    """The segment length of an i-marching kernel that minimizes waves x
+    (planes + warm-up) a block: the blocks of one wave share their SMs, so
+    a wave takes about as long as one block's march. Cached: the search
+    takes about as long as K2 itself, and each launch asks for its plan."""
+    return min(range(min(MIN_SEGMENT, ni), ni + 1),
+               key=lambda si: (-(-(-(-ni // si) * tiles) // per_wave)
+                               * (si + 1), si))
+
+
+@functools.lru_cache(maxsize=None)
+def n_sm(device):
+    """SMs of the card ``device``."""
+    import torch
+    return torch.cuda.get_device_properties(device).multi_processor_count

@@ -3,17 +3,27 @@ version.
 
 Replaces the TPU kernel ``adflow_tpu/ops/pallas_residual.py::_kernel``
 (entry ``fused_inviscid_residual``, pallas_call at :225). The CUDA source is
-``adflow_torch/csrc/inviscid_residual.cu``: pass 1 writes the pressure
-sensor and the three scaled spectral radii per one-ring extended cell to a
-scratch buffer, pass 2 computes each interior cell's six face fluxes and
-writes its five mean-flow channels.
+``adflow_torch/csrc/inviscid_residual.cu``: one launch of one kernel, one
+pass, no scratch in device memory, on the design of K1
+(``csrc/rans_residual.cu``). Each thread block owns a j-k tile of 8 x 16
+interior columns and marches along i over a segment of ``SI`` planes, two
+threads a column: each padded plane of ``w5`` and ``p`` lands by
+``cp.async`` one plane ahead and is converted once, by each column's second
+thread, into a ring of five planes of primitive cells in shared memory; the
+sensor and the three scaled radii of the current and the next extended
+plane sit in shared memory; each j- and k-face is computed once into shared
+memory, each i-face once by the column's first thread, which keeps it in
+shared memory as the next plane's lower face (in registers it would pass
+the 64-register cap of four blocks an SM). ``k2_tile_plan`` computes the segment, the grid, the shared bytes
+and the copy width, so that the CPU tests check what the CUDA code relies
+on.
 
 Bound on the H100: device-memory bytes. One evaluation at 256x64x64 must
 read its inputs once and write its output once, about 104 MB (31 us at
-3.35 TB/s), against about 0.43 GFLOP (6 us at 67 TFLOP/s f32). This first
-version is the simple, deterministic design (no atomics, no shared-memory
-tiles); it moves the scratch round trip and neighbour re-reads on top of
-the bound. ``chip_smoke.py`` measures it against the bound.
+3.35 TB/s), against about 0.44 GFLOP (6.5 us at 67 TFLOP/s f32). No tensor
+core applies: the kernel is a stencil with no matrix product.
+``chip_smoke.py`` and ``python -m adflow_torch.ops.k2_timing`` measure it
+against the bound.
 
 On CPU tensors the wrapper computes the plain version
 (``inviscid_residual_reference``). On CUDA tensors it launches the kernel or
@@ -26,6 +36,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+from typing import NamedTuple
 
 import torch
 
@@ -46,16 +57,71 @@ FLOP_PER_EXT_CELL = 90
 FLOP_PER_FACE = 95
 FLOP_PER_CELL = 30
 
+# The tile inviscid_residual.cu is built for: TJ x TK columns,
+# K2_THREADS_PER_COLUMN threads a column, K2_BLOCKS_PER_SM blocks on an SM
+# (its __launch_bounds__).
+K2_TILE = (8, 16)
+K2_THREADS_PER_COLUMN = 2
+K2_BLOCKS_PER_SM = 4
+# shared memory of one block, in floats: one raw plane of w5 and p (6 floats
+# a cell), CELL_PLANES planes of N_CELL floats a cell (the four a step reads
+# and the one the next step's plane lands in), two planes of N_DERIVED
+# derived fields, N_FACE floats per j-, k- and i-face of a plane
+CELL_PLANES, N_CELL, N_DERIVED, N_FACE = 5, 6, 4, 5
+
+
+class K2Plan(NamedTuple):
+    """How one launch covers a block: ``tj x tk`` columns per thread block,
+    ``si`` planes per segment; grid (k tiles, j tiles, segments)."""
+    tj: int
+    tk: int
+    si: int
+    grid: tuple
+    threads: int
+    smem_bytes: int
+    copy_width: int
+
+
+def k2_tile_plan(ni, nj, nk, si=None, n_sm=_nvcc.N_SM):
+    """The launch plan of K2 for a block of ``ni x nj x nk`` interior cells
+    on a card with ``n_sm`` SMs.
+
+    Thread block (x, y, z) owns interior columns j in [y tj, y tj + tj) and
+    k in [x tk, x tk + tk) of the segment i in [z si, z si + si), each range
+    cut at the block's edge. Without ``si``, the segment fills whole waves
+    of resident blocks (``_nvcc.segment``). Rows of the padded ``w5`` and
+    ``p`` planes are copied 16 bytes at a time when every row the kernel
+    copies starts 16-byte aligned and lies inside the block (from aligned
+    base pointers), else 4 bytes: a row starts at cell ``(I (nj+4) + J)
+    (nk+4) + k0``, 20 bytes a cell of ``w5`` and 4 of ``p``, so that needs
+    ``nk + 4`` a multiple of 4 (k0 is a multiple of ``tk``, itself one of 4)
+    and no ragged k tile. The kernel's offsets are 32-bit: its launch
+    refuses a block whose ``w5`` holds 2^31 floats or more."""
+    tj, tk = K2_TILE
+    grid = (-(-nk // tk), -(-nj // tj))
+    if si is None:
+        si = _nvcc.segment(ni, grid[0] * grid[1], n_sm * K2_BLOCKS_PER_SM)
+    if si < 1:
+        raise ValueError(f"segment of {si} planes")
+    ring_cells = (tj + 4) * (tk + 4)
+    floats = (ring_cells * 6 + CELL_PLANES * N_CELL * ring_cells
+              + 2 * N_DERIVED * (tj + 2) * (tk + 2)
+              + N_FACE * ((tj + 1) * tk + tj * (tk + 1) + tj * tk))
+    wide = (nk + 4) % 4 == 0 and nk % tk == 0
+    return K2Plan(tj, tk, si, (*grid, -(-ni // si)),
+                  K2_THREADS_PER_COLUMN * tj * tk, 4 * floats,
+                  16 if wide else 4)
+
 
 @functools.lru_cache(maxsize=1)
 def _lib():
     lib = ctypes.CDLL(str(_nvcc.build(SRC)))
     fn = lib.inviscid_residual_launch
     fn.restype = ctypes.c_int
-    fn.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 3
+    # w5, p, siE, sjE, skE, porI, porJ, porK, out; ni, nj, nk, tj, tk,
+    # threads, si, copy_width, smem_bytes; vis2, vis4, expo; stream
+    fn.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 9
                    + [ctypes.c_float] * 3 + [ctypes.c_void_p])
-    lib.inviscid_residual_scratch_fields.restype = ctypes.c_int
-    lib.inviscid_residual_scratch_fields.argtypes = []
     return lib
 
 
@@ -96,25 +162,27 @@ def check_operands(tensors):
     return ni, nj, nk
 
 
-def _launch(tensors, vis2, vis4, expo):
-    """Check the operands and launch the kernel; returns (ni, nj, nk, 5)."""
+def _launch(tensors, vis2, vis4, expo, plan=None):
+    """Check the operands and launch the kernel with ``plan`` (default
+    ``k2_tile_plan``); returns (ni, nj, nk, 5)."""
     global LAUNCHES
-    w5 = tensors[0]
+    w5, p = tensors[:2]
     if not w5.is_cuda:
         raise ValueError(f"w5: on {w5.device}, the kernel runs on CUDA")
     ni, nj, nk = check_operands(tensors)
+    plan = plan or k2_tile_plan(ni, nj, nk, n_sm=_nvcc.n_sm(w5.device))
+    # the plan's 16-byte copies assume aligned bases
+    aligned = w5.data_ptr() % 16 == 0 and p.data_ptr() % 16 == 0
+    width = plan.copy_width if aligned else 4
     lib = _lib()
-    n_ext = (ni + 2) * (nj + 2) * (nk + 2)
     with torch.cuda.device(w5.device):
-        scratch = torch.empty(lib.inviscid_residual_scratch_fields() * n_ext,
-                              dtype=torch.float32, device=w5.device)
         out = torch.empty((ni, nj, nk, 5), dtype=torch.float32,
                           device=w5.device)
         stream = torch.cuda.current_stream(w5.device).cuda_stream
         err = lib.inviscid_residual_launch(
-            *(t.data_ptr() for t in tensors), scratch.data_ptr(),
-            out.data_ptr(), ni, nj, nk, float(vis2), float(vis4), float(expo),
-            stream)
+            *(t.data_ptr() for t in tensors), out.data_ptr(), ni, nj, nk,
+            plan.tj, plan.tk, plan.threads, plan.si, width, plan.smem_bytes,
+            float(vis2), float(vis4), float(expo), stream)
     if err != 0:
         raise RuntimeError(f"inviscid_residual_launch failed: CUDA error "
                            f"{err}")

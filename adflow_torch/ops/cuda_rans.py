@@ -62,9 +62,6 @@ K1_BLOCKS_PER_SM = 2
 # planes of N_CELL floats a cell, two planes of N_DERIVED derived fields,
 # N_FACE floats per j- and k-face of a plane, one SA source a column
 CELL_PLANES, N_CELL, N_DERIVED, N_FACE = 4, 11, 22, 12
-SMEM_LIMIT = 232_448      # bytes a block may use on Hopper
-N_SM = 132                # SMs of an H100 SXM
-MIN_SEGMENT = 4           # the warm-up plane costs at most a quarter
 
 
 class K1Plan(NamedTuple):
@@ -79,23 +76,14 @@ class K1Plan(NamedTuple):
     copy_width: int
 
 
-def _segment(ni, tiles, per_wave):
-    """The segment length that minimizes waves x (planes + warm-up) a block:
-    the blocks of one wave share their SMs, so a wave takes about as long as
-    one block's march."""
-    return min(range(min(MIN_SEGMENT, ni), ni + 1),
-               key=lambda si: (-(-(-(-ni // si) * tiles) // per_wave)
-                               * (si + 1), si))
-
-
-def k1_tile_plan(ni, nj, nk, si=None, n_sm=N_SM):
+def k1_tile_plan(ni, nj, nk, si=None, n_sm=_nvcc.N_SM):
     """The launch plan of K1 for a block of ``ni x nj x nk`` interior cells
     on a card with ``n_sm`` SMs.
 
     Thread block (x, y, z) owns interior columns j in [y tj, y tj + tj) and
     k in [x tk, x tk + tk) of the segment i in [z si, z si + si), each range
     cut at the block's edge. Without ``si``, the segment fills whole waves
-    of resident blocks (``_segment``). Rows of the padded ``w`` plane are
+    of resident blocks (``_nvcc.segment``). Rows of the padded ``w`` plane are
     copied 16 bytes at a time when every row the kernel copies starts
     16-byte aligned and lies inside the block (from an aligned base
     pointer), else 4 bytes: a row starts at cell ``(I (nj+4) + J)(nk+4) +
@@ -104,7 +92,7 @@ def k1_tile_plan(ni, nj, nk, si=None, n_sm=N_SM):
     tj, tk = K1_TILE
     grid = (-(-nk // tk), -(-nj // tj))
     if si is None:
-        si = _segment(ni, grid[0] * grid[1], n_sm * K1_BLOCKS_PER_SM)
+        si = _nvcc.segment(ni, grid[0] * grid[1], n_sm * K1_BLOCKS_PER_SM)
     if si < 1:
         raise ValueError(f"segment of {si} planes")
     ring_cells = (tj + 4) * (tk + 4)
@@ -114,13 +102,6 @@ def k1_tile_plan(ni, nj, nk, si=None, n_sm=N_SM):
     wide = (nk + 4) % 2 == 0 and nk % tk == 0
     return K1Plan(tj, tk, si, (*grid, -(-ni // si)), K1_THREADS, 4 * floats,
                   16 if wide else 4)
-
-
-def ptxas_report():
-    """The lines of K1's build log that give its registers, spills and
-    shared memory (``-Xptxas -v``)."""
-    return [ln.strip() for ln in _nvcc.build_log(SRC).splitlines()
-            if "Compiling entry" in ln or "registers" in ln or "spill" in ln]
 
 
 @functools.lru_cache(maxsize=1)
@@ -185,7 +166,7 @@ def _launch(tensors, vis2, vis4, expo, mu_inf, t_inf_dim, use_ft2,
     if not w6.is_cuda:
         raise ValueError(f"w6: on {w6.device}, the kernel runs on CUDA")
     ni, nj, nk = check_operands(tensors)
-    plan = plan or k1_tile_plan(ni, nj, nk, n_sm=_n_sm(w6.device))
+    plan = plan or k1_tile_plan(ni, nj, nk, n_sm=_nvcc.n_sm(w6.device))
     # the plan's 16-byte copies assume an aligned base
     width = plan.copy_width if w6.data_ptr() % 16 == 0 else 4
     lib = _lib()
@@ -204,11 +185,6 @@ def _launch(tensors, vis2, vis4, expo, mu_inf, t_inf_dim, use_ft2,
         raise RuntimeError(f"rans_residual_launch failed: CUDA error {err}")
     LAUNCHES += 1
     return out
-
-
-@functools.lru_cache(maxsize=None)
-def _n_sm(device):
-    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def _s_suth(t_inf_dim):

@@ -7,25 +7,29 @@ Run from the root of the repository on a machine with a CUDA card and the
 CUDA toolkit. It builds the two kernels with nvcc, one process each, started
 together: the fused RANS-SA residual (K1, adflow_torch/csrc/rans_residual.cu,
 one pass that marches along i) and the central + JST inviscid residual (K2,
-adflow_torch/csrc/inviscid_residual.cu). Then, each phase timed:
+adflow_torch/csrc/inviscid_residual.cu, one pass that marches along i as
+well). Then, each phase timed:
   [1]-[8]  K1 against its plain version, two of its launches against each
            other (bitwise), and its gradient; the steady
            RANS-SA Runge-Kutta solve of the 1.05 M-cell wing O-mesh through
            ``ADFLOW`` (a path of its own, K1 launches counted); K1's tile
            plan, registers and shared bytes, its times and one RK cycle's
            breakdown;
-  [9]-[11] K2 against its plain version; jvp and vjp through both kernels'
+  [9]-[11] K2 against its plain version, on an odd block with a segment
+           that does not divide ni, and two of its launches against each
+           other (bitwise); jvp and vjp through both kernels'
            autograd.Functions on the card; a small Euler ANK solve on the
            card against the CPU;
   [12]     the main path: the default ANK solve of the Euler wing at
            256x64x64 through ``ADFLOW``, K2 launches counted per step;
   [13]     2 ANK steps of the RANS-SA wing at 64x24x16 through K1;
-  [14]     K2's times, one ANK step broken down, two ANK steps under
-           torch.profiler.
+  [14]     K2's tile plan, registers and shared bytes, its times, one ANK
+           step broken down, two ANK steps under torch.profiler.
 Any failed check raises, so the exit code is not 0. The last line is
 ``{"ok": true, "device": {...}}``; the line before it lists the kernels with
-their launches, errors and times. Without a card it exits with 1 and prints
-no result.
+their launches, errors and times (``ms`` by CUDA events around calls of the
+wrapper, ``profiled_ms`` the profiler's device time a launch on the path).
+Without a card it exits with 1 and prints no result.
 """
 
 from __future__ import annotations
@@ -56,6 +60,7 @@ SOLVE_RTOL = 1e-3   # f32 on the card vs f64 on the CPU after 25 RK cycles
 EULER = dict(name="m6e", mach=0.84, alpha=3.06, evalFuncs=["cl", "cd"])
 ANK_STEPS = 5
 K2_SMALL_DIMS = ((16, 8, 8), (15, 7, 5))   # tests/test_pallas.py's wing, odd
+K2_ODD = ((37, 19, 33), 5)    # a block of no tile size, segment not dividing ni
 # f32 on the card vs f64 on the CPU after 3 ANK steps: each step's GMRES
 # stops at 5% of its right-hand side, so the f32 rounding moves where
 # the Krylov iterations stop
@@ -291,6 +296,29 @@ def compare_k2(label, tensors, consts, rtol):
     return max(rel), abs_err
 
 
+def check_k2_plan_and_bitwise(dims, si):
+    """K2 on ``dims`` with segment ``si`` against its plain version, then two
+    K2 launches with the default plan bitwise equal: every face is computed
+    once and each cell sums its faces in a fixed order."""
+    from adflow_torch.ops import cuda_inviscid
+    tensors, consts = cuda_inviscid.sample_operands(dims, "cuda:0")
+    plan = cuda_inviscid.k2_tile_plan(*dims, si=si)
+    got = cuda_inviscid._launch(tensors, *consts, plan=plan)
+    want = cuda_inviscid.inviscid_residual_reference(*tensors, *consts)
+    a = cuda_inviscid.fused_inviscid_residual(*tensors, *consts)
+    b = cuda_inviscid.fused_inviscid_residual(*tensors, *consts)
+    torch.cuda.synchronize()
+    rel, abs_err = rel_errors(want, got)
+    same = bool(torch.equal(a, b))
+    print(f"  K2 vs plain {'x'.join(map(str, dims))}, segment {plan.si} "
+          f"(grid {plan.grid}): per-channel rel err "
+          f"{[f'{e:.3e}' for e in rel]}, max abs err {abs_err:.3e} "
+          f"(tolerance {SMALL_RTOL:g}); two launches bitwise equal {same}")
+    assert bool(torch.isfinite(got).all()), "kernel output not finite"
+    assert max(rel) < SMALL_RTOL, f"K2 disagrees with its plain version: {rel}"
+    assert same, "K2 launches differ"
+
+
 def k2_operands(solver):
     """K2's operands and constants as the main path gives them, at the
     solver's current state."""
@@ -488,7 +516,8 @@ def rans_ank_path():
 
 def ank_breakdown(solver):
     """One ANK step of the main path's final state broken into its pieces
-    (CUDA events), then two ANK steps under torch.profiler."""
+    (CUDA events), then two ANK steps under torch.profiler; returns K2's
+    device ms a launch in them."""
     from adflow_torch.solvers import krylov, newton
 
     opts = solver.options
@@ -536,13 +565,17 @@ def ank_breakdown(solver):
         for _ in range(2):
             w = step(w, cfl, pc).w
 
-    profile_device(two_steps, "2 ANK steps")
+    return profile_device(two_steps, "2 ANK steps",
+                          "inviscid_residual_kernel")
 
 
-def profile_device(run, label):
+def profile_device(run, label, kernel):
     """``run()`` under torch.profiler: its wall time, the device's busy
     time, device ops and idle share, and the kernels that took most of the
-    device time."""
+    device time. Returns the device ms a launch of ``kernel`` (a name in
+    the profile): the kernel's own time, with no host time in it, which CUDA
+    events around a call hold where the host's call takes longer than the
+    kernel."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -564,6 +597,10 @@ def profile_device(run, label):
           f"{1.0 - busy / wall_us:.3f}")
     for dev, count, key in rows[:12]:
         print(f"    {dev / 1e3:9.3f} ms {count:7d}x  {key[:90]}")
+    dev, count = next((d, c) for d, c, key in rows if kernel in key)
+    print(f"  {kernel}: {count} launches, {dev / 1e3 / count:.4f} ms of "
+          f"device time each")
+    return dev / 1e3 / count
 
 
 def kernel_times(label, fused, plain, tensors, consts, n_bytes, n_flop,
@@ -587,7 +624,7 @@ def kernel_times(label, fused, plain, tensors, consts, n_bytes, n_flop,
 def cycle_breakdown(solver):
     """One RK cycle's pieces timed alone (CUDA events), then two cycles
     under torch.profiler: device time by kernel and the device's idle
-    share."""
+    share; returns K1's device ms a launch in them."""
     from adflow_torch.physics.residual import block_residual, fill_halos
     from adflow_torch.physics.sa import sa_destruction_diag
     from adflow_torch.physics.thermo import pressure
@@ -620,7 +657,7 @@ def cycle_breakdown(solver):
             w, _ = rk_iteration(w, s.metrics_list, s.topo, s.cfg, s.ref,
                                 s.winf, cfl, s.extras_list)
 
-    profile_device(two_cycles, "2 cycles")
+    return profile_device(two_cycles, "2 cycles", "rans_residual_kernel")
 
 
 class Phases:
@@ -685,7 +722,7 @@ def main() -> int:
         ni, nj, nk, n_sm=torch.cuda.get_device_properties(0)
         .multi_processor_count)
     print(f"  tile plan at {ni}x{nj}x{nk}: {plan}")
-    for line in cuda_rans.ptxas_report():
+    for line in _nvcc.ptxas_report(cuda_rans.SRC):
         print(f"  {line}")
     k1_times = kernel_times(
         "K1", cuda_rans.fused_rans_residual,
@@ -694,18 +731,20 @@ def main() -> int:
         name)
 
     phase("[8] where one RK cycle's time goes")
-    cycle_breakdown(solver)
+    k1_times["profiled_ms"] = cycle_breakdown(solver)
     del solver, tensors
     # the post-solve check of [6], held until the times are printed
     assert flux_rel < FLUX_RTOL, f"K1 disagrees with its plain version: " \
         f"{flux_rel:.3e} of the flux scale"
 
-    phase("[9] K2 against its plain version")
+    phase("[9] K2 against its plain version, on an odd block with a ragged "
+          "segment; two launches bitwise equal")
     for dims in K2_SMALL_DIMS:
         compare_k2("x".join(map(str, dims)),
                    *cuda_inviscid.sample_operands(dims, "cuda:0"), SMALL_RTOL)
     compare_k2("full size, perturbed state",
                *cuda_inviscid.sample_operands(FULL_DIMS, "cuda:0"), FULL_RTOL)
+    check_k2_plan_and_bitwise(*K2_ODD)
 
     phase("[10] jvp and vjp through both kernels on the card")
     check_derivatives()
@@ -723,14 +762,20 @@ def main() -> int:
           f"{'x'.join(map(str, RANS_ANK_DIMS))} wing through K1")
     k1_ank = rans_ank_path()
 
-    phase("[14] K2 times (CUDA events, median of 20 after warm-up) and one "
-          "ANK step's pieces")
+    phase("[14] K2's plan and build, its times (CUDA events, median of 20 "
+          "after warm-up) and one ANK step's pieces")
+    k2_plan = cuda_inviscid.k2_tile_plan(
+        ni, nj, nk, n_sm=torch.cuda.get_device_properties(0)
+        .multi_processor_count)
+    print(f"  tile plan at {ni}x{nj}x{nk}: {k2_plan}")
+    for line in _nvcc.ptxas_report(cuda_inviscid.SRC):
+        print(f"  {line}")
     k2_times = kernel_times(
         "K2", cuda_inviscid.fused_inviscid_residual,
         cuda_inviscid.inviscid_residual_reference, tensors, consts,
         cuda_inviscid.min_bytes(ni, nj, nk),
         cuda_inviscid.flop_count(ni, nj, nk), name)
-    ank_breakdown(solver)
+    k2_times["profiled_ms"] = ank_breakdown(solver)
     phase()
 
     print(card)
@@ -748,6 +793,7 @@ def main() -> int:
         {"name": "fused_inviscid_residual", "route": "cuda",
          "source": "adflow_torch/csrc/inviscid_residual.cu",
          "replaces": "adflow_tpu/ops/pallas_residual.py:45",
+         "design": "one pass, i-march",
          "launches": k2_ank,
          "launches_by_path": {"ank_euler_wing_256x64x64": k2_ank},
          "max_abs_err": k2_abs, "max_rel_err": k2_flux_rel, **k2_times,

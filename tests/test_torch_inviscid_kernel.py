@@ -5,11 +5,17 @@ Pallas kernel run in interpret mode (``fused_inviscid_residual``, as
 tests/test_pallas.py runs it) to 2e-5 relative per channel; in float64
 against ``inviscid_residual`` to 1e-12, with and without the coarse-level
 constant dissipation; its jvp and vjp against ``jax.jvp``/``jax.vjp``; the
-wrapper's CPU route, its operand checks, and the ``autograd.Function``'s
-backward and jvp through the plain version. On a card (marker ``cuda``,
-skipped without one): the CUDA kernel against the plain version at 2e-5 per
-channel on the test_pallas.py wing and on an odd-sized block, and
-``block_residual`` launching it for an Euler block.
+wrapper's CPU route, its operand checks, the ``autograd.Function``'s
+backward and jvp through the plain version, and the kernel's tile plan
+(``k2_tile_plan``: every interior cell in exactly one block's tile and
+segment, the segment at the main path's size, the shared bytes, the copy
+width against the row alignment of the 20-byte ``w5`` and 4-byte ``p``
+cells). On a card (marker ``cuda``, skipped without one): the CUDA kernel
+against the plain version at 2e-5 per channel on the test_pallas.py wing
+and on blocks whose sizes are multiples of no tile size, with segments
+that do not divide ni and one longer than the block (with 16-byte copies);
+two launches bitwise equal; and ``block_residual`` launching it for an
+Euler block.
 
 JAX is imported inside the tests that run it, so the card tests run on a
 machine without JAX:
@@ -20,7 +26,7 @@ import numpy as np
 import pytest
 import torch
 
-from adflow_torch.ops import cuda_inviscid
+from adflow_torch.ops import _nvcc, cuda_inviscid
 
 KERNEL_RTOL = 2e-5
 F64_RTOL = 1e-12
@@ -202,8 +208,89 @@ def test_autograd_function_derivatives(monkeypatch):
     assert float(torch.abs(vjp_p).max()) > 0.0
 
 
+PLAN_DIMS = [(16, 8, 8), (15, 7, 5), (2, 3, 5), (256, 64, 64)]
+
+
+@pytest.mark.parametrize("si", [None, 5])
+@pytest.mark.parametrize("dims", PLAN_DIMS)
+def test_tile_plan_covers_each_cell_once(dims, si):
+    ni, nj, nk = dims
+    plan = cuda_inviscid.k2_tile_plan(ni, nj, nk, si=si)
+    assert plan.threads == (cuda_inviscid.K2_THREADS_PER_COLUMN * plan.tj
+                            * plan.tk)
+    cover = np.zeros(dims, np.int32)
+    gx, gy, gz = plan.grid
+    for z in range(gz):
+        for y in range(gy):
+            for x in range(gx):
+                cells = cover[z * plan.si:(z + 1) * plan.si,
+                              y * plan.tj:(y + 1) * plan.tj,
+                              x * plan.tk:(x + 1) * plan.tk]
+                assert cells.size > 0, (x, y, z)
+                cells += 1
+    assert (cover == 1).all()
+
+
+def test_tile_plan_segment_fills_waves():
+    """At the main path's size the segment makes the blocks whole waves of
+    K2_BLOCKS_PER_SM blocks on each of 132 SMs, and no shorter segment
+    needs fewer waves x (planes + warm-up)."""
+    plan = cuda_inviscid.k2_tile_plan(256, 64, 64)
+    n_blocks = plan.grid[0] * plan.grid[1] * plan.grid[2]
+    per_wave = cuda_inviscid.K2_BLOCKS_PER_SM * _nvcc.N_SM
+    waves = -(-n_blocks // per_wave)
+    assert n_blocks <= waves * per_wave
+    assert n_blocks > (waves - 1) * per_wave
+    tiles = plan.grid[0] * plan.grid[1]
+    for si in range(_nvcc.MIN_SEGMENT, 257):
+        w = -(-(-(-256 // si) * tiles) // per_wave)
+        assert w * (si + 1) >= waves * (plan.si + 1)
+    assert cuda_inviscid.k2_tile_plan(3, 11, 7).si == 3
+
+
+def test_tile_plan_shared_bytes():
+    """The shared memory fits a block, the blocks per SM that its
+    __launch_bounds__ asks for fit the SM's 228 KB (1 KB of it reserved per
+    block), and the plan's bytes are the source's."""
+    plan = cuda_inviscid.k2_tile_plan(256, 64, 64)
+    assert plan.smem_bytes <= _nvcc.SMEM_LIMIT
+    assert (cuda_inviscid.K2_BLOCKS_PER_SM
+            * (plan.smem_bytes + _nvcc.SMEM_RESERVED)) <= _nvcc.SM_SMEM
+    assert plan.smem_bytes % 16 == 0
+    assert plan.smem_bytes == 48_480
+    src = cuda_inviscid.SRC.read_text()
+    assert "constexpr int TJ = 8, TK = 16;" in src
+    assert (f"constexpr int TPC = "
+            f"{cuda_inviscid.K2_THREADS_PER_COLUMN};") in src
+    assert (f"constexpr int MIN_BLOCKS = "
+            f"{cuda_inviscid.K2_BLOCKS_PER_SM};") in src
+
+
+@pytest.mark.parametrize("dims", PLAN_DIMS)
+def test_tile_plan_copy_width_divides_row_alignment(dims):
+    """Every row of w5 (20 bytes a cell) and of p (4 bytes a cell) the
+    kernel copies starts at a byte offset, and spans a byte count, that the
+    copy width divides; 16-byte rows lie inside the block. The main path's
+    256x64x64 gets 16-byte copies."""
+    ni, nj, nk = dims
+    plan = cuda_inviscid.k2_tile_plan(ni, nj, nk)
+    width = plan.copy_width
+    rows = np.arange((ni + 4) * (nj + 4), dtype=np.int64)[:, None]
+    k0 = np.arange(plan.grid[0], dtype=np.int64)[None, :] * plan.tk
+    for cell_bytes in (20, 4):
+        starts = (rows * (nk + 4) + k0) * cell_bytes
+        assert (starts % width == 0).all()
+        assert (plan.tk + 4) * cell_bytes % width == 0
+    if width == 16:
+        assert (k0 + plan.tk + 4 <= nk + 4).all()
+    else:
+        assert width == 4
+    assert (width == 16) == (dims == (256, 64, 64))
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("dims", [(16, 8, 8), (15, 7, 5)])
+@pytest.mark.parametrize("dims", [(16, 8, 8), (15, 7, 5), (37, 19, 33),
+                                  (9, 8, 16)])
 def test_kernel_matches_plain_on_card(cuda_device, dims):
     tensors, consts = cuda_inviscid.sample_operands(dims, cuda_device)
     before = cuda_inviscid.LAUNCHES
@@ -213,6 +300,32 @@ def test_kernel_matches_plain_on_card(cuda_device, dims):
     want = cuda_inviscid.inviscid_residual_reference(*tensors, *consts)
     errs = _rel_per_channel(want.cpu().numpy(), got.cpu().numpy())
     assert max(errs) < KERNEL_RTOL, errs
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dims,si", [((37, 19, 33), 1), ((37, 19, 33), 5),
+                                     ((9, 8, 16), 16)])
+def test_kernel_segments_match_plain_on_card(cuda_device, dims, si):
+    """Segments that do not divide ni, down to one plane each, and one
+    longer than the block (with 16-byte copies)."""
+    tensors, consts = cuda_inviscid.sample_operands(dims, cuda_device)
+    plan = cuda_inviscid.k2_tile_plan(*dims, si=si)
+    assert (plan.copy_width == 16) == (dims == (9, 8, 16))
+    got = cuda_inviscid._launch(tensors, *consts, plan=plan)
+    torch.cuda.synchronize()
+    want = cuda_inviscid.inviscid_residual_reference(*tensors, *consts)
+    errs = _rel_per_channel(want.cpu().numpy(), got.cpu().numpy())
+    assert max(errs) < KERNEL_RTOL, errs
+
+
+@pytest.mark.cuda
+def test_kernel_launches_bitwise_equal_on_card(cuda_device):
+    tensors, consts = cuda_inviscid.sample_operands((37, 19, 33),
+                                                    cuda_device)
+    a = cuda_inviscid.fused_inviscid_residual(*tensors, *consts)
+    b = cuda_inviscid.fused_inviscid_residual(*tensors, *consts)
+    torch.cuda.synchronize()
+    assert torch.equal(a, b)
 
 
 @pytest.mark.cuda

@@ -22,7 +22,7 @@ import numpy as np
 import pytest
 import torch
 
-from adflow_torch.ops import cuda_rans
+from adflow_torch.ops import _nvcc, cuda_rans
 
 KERNEL_RTOL = 2e-5
 
@@ -147,8 +147,9 @@ def test_tile_plan_shared_bytes():
     __launch_bounds__ asks for fit the SM's 228 KB (1 KB of it reserved per
     block)."""
     plan = cuda_rans.k1_tile_plan(256, 64, 64)
-    assert plan.smem_bytes <= cuda_rans.SMEM_LIMIT
-    assert cuda_rans.K1_BLOCKS_PER_SM * (plan.smem_bytes + 1024) <= 233_472
+    assert plan.smem_bytes <= _nvcc.SMEM_LIMIT
+    assert (cuda_rans.K1_BLOCKS_PER_SM
+            * (plan.smem_bytes + _nvcc.SMEM_RESERVED)) <= _nvcc.SM_SMEM
     assert plan.smem_bytes % 16 == 0
     assert plan.smem_bytes == 93_632
 
