@@ -1,0 +1,248 @@
+"""The discrete adjoint through the one residual (counterpart of
+adflow_tpu/adjoint/api.py; reference: the adjoint tree of ADflow and
+adjointAPI.F90:661 solveAdjoint).
+
+- forward products: ``torch.func.jvp`` of ``res``;
+- reverse products: ``torch.func.vjp`` of ``res``, built once per adjoint
+  solve and called once per GMRES iteration;
+- the adjoint solve: matrix-free GMRES on dR/dw^T psi = dI/dw with the
+  transposed block line-implicit preconditioner.
+
+The residual and the functions are traced as R(w, x, params) and
+I(w, x, params), with params the design variables {alpha, beta, mach, T,
+P, xref[, reynolds]} (degrees, SI) as 0-d tensors and x every block's node
+coordinates, so the totals with respect to the flow conditions and the
+shape come from the same two vjps: dI/d* = dI/d*|direct - psi^T dR/d*.
+
+On the card in float32 the residual's forward runs the kernels K1 and K2
+(ops/cuda_rans.py, ops/cuda_inviscid.py); their backward runs the plain
+version, as the JAX package's ``custom_jvp`` does. The traced reference
+state makes ``mu_inf`` and ``t_inf_dim`` tensors, which K1 takes as inputs
+of their own so that their derivatives are kept.
+
+The wall distance is frozen with respect to x, as in the JAX package.
+
+Not ported: the multigrid adjoint PC (ROADMAP.md queue 1 item 10), the
+grid-motion design variables rotRate, rotCenter and machGrid (item 9), and
+user surfaces, overset iblank, the zipper, patch weights and cp targets
+(item 11).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Callable, NamedTuple
+
+import numpy as np
+import torch
+
+from adflow_torch.core.refstate import GAMMA, ReferenceState
+from adflow_torch.geom.metrics import compute_metrics_conn
+from adflow_torch.physics.residual import fill_halos, residual_list
+from adflow_torch.physics.surface import cost_functions, integrate_forces
+from adflow_torch.solvers.krylov import GmresResult, gmres
+
+# The PC's pseudo-CFL: the same large regularization NK uses (the JAX
+# package's _transposed_line_pc and solveDirectForRHS).
+PC_CFL = 1e6
+
+
+def _todo(what: str, item: str):
+    return NotImplementedError(
+        f"{what} is not ported to adflow_torch yet (ROADMAP.md queue 1 "
+        f"item {item})")
+
+
+def traced_reference_state(base: ReferenceState, params) -> ReferenceState:
+    """The reference state with the flow-condition fields rebuilt as
+    tensors of ``params``, so that derivatives with respect to alpha, beta,
+    mach, reynolds, T, P and xref reach the BCs, the viscosity and the
+    force nondimensionalization."""
+    alpha = params["alpha"] * (math.pi / 180.0)
+    beta = params["beta"] * (math.pi / 180.0)
+    mach = params["mach"]
+    ca, sa = torch.cos(alpha), torch.sin(alpha)
+    cb, sb = torch.cos(beta), torch.sin(beta)
+    if base.lift_index == 2:
+        vel_dir = torch.stack([ca * cb, sa * cb, -sb])
+        lift_dir = torch.stack([-sa, ca, torch.zeros_like(sa)])
+    else:
+        vel_dir = torch.stack([ca * cb, -sb, sa * cb])
+        lift_dir = torch.stack([-sa, torch.zeros_like(sa), ca])
+    # mu_inf' = mach * L_re / Re: the Mach and Reynolds chains
+    re_over_l = (base.mu_inf / base.mach if base.mach > 0 and base.mu_inf > 0
+                 else 0.0)
+    mu_inf = mach * re_over_l
+    extra = {}
+    if "reynolds" in params and base.reynolds > 0:
+        mu_inf = mu_inf * (base.reynolds / params["reynolds"])
+    if "T" in params:
+        # the dimensional T_inf drives the Sutherland ratio S/T_inf
+        extra["t_inf_dim"] = params["T"]
+    if "P" in params:
+        # reaches the dimensional cost functions through p_ref_dim = gamma P
+        extra["p_ref_dim"] = GAMMA * params["P"]
+    if "xref" in params:
+        extra["moment_ref"] = params["xref"]
+    return dataclasses.replace(
+        base, u_inf=mach * vel_dir, mu_inf=mu_inf,
+        nu_tilde_inf=3.0 * mu_inf, vel_dir=vel_dir, drag_dir=vel_dir,
+        lift_dir=lift_dir, q_inf=0.5 * mach ** 2, **extra)
+
+
+def traced_winf(ref: ReferenceState):
+    """The conservative free stream of a traced reference state (the
+    solver refuses SST, so at most one turbulence variable, SA's)."""
+    vel = ref.u_inf
+    rho_e = ref.p_inf / (GAMMA - 1.0) + 0.5 * torch.sum(vel * vel)
+    parts = [torch.ones(1, dtype=vel.dtype, device=vel.device), vel,
+             rho_e[None]]
+    if ref.n_turb >= 1:
+        parts.append(torch.as_tensor(ref.nu_tilde_inf, dtype=vel.dtype,
+                                     device=vel.device).reshape(1))
+    return torch.cat(parts)
+
+
+class AdjointFns(NamedTuple):
+    res: Callable        # (wvec, xvec, params) -> rvec
+    funcs: Callable      # (wvec, xvec, params) -> {name: scalar}
+    pack_x: Callable
+    unpack_x: Callable
+
+
+def build_adjoint_fns(solver) -> AdjointFns:
+    """Bind the traced residual and function pipeline to a solver (its
+    topology, options, wall distance and reference state at this call)."""
+    packer = solver._newton_packer()
+    topo, cfg, base_ref = solver.topo, solver.cfg, solver.ref
+    extras_list = solver.extras_list   # frozen wall distance
+    x_shapes = [tuple(x.shape) for x in solver.x_list]
+    x_offsets = np.concatenate(
+        [[0], np.cumsum([math.prod(s) for s in x_shapes])]).tolist()
+    wall_patches = solver.wall_patches
+    dtype = solver.dtype
+    mesh_blocks = solver.mesh.blocks
+    pad_shapes = [tuple(d + 4 for d in bs.dims) + (packer.nw,)
+                  for bs in topo.blocks]
+
+    def pack_x(x_list):
+        return torch.cat([x.reshape(-1) for x in x_list])
+
+    def unpack_x(xvec):
+        return [xvec[x_offsets[i]:x_offsets[i + 1]].reshape(s)
+                for i, s in enumerate(x_shapes)]
+
+    def _prep(wvec, xvec, params):
+        if "rotRate" in params or "machGrid" in params:
+            raise _todo("the grid-motion design variables rotRate, "
+                        "rotCenter and machGrid", "9")
+        ref = traced_reference_state(base_ref, params)
+        winf = traced_winf(ref).to(dtype)
+        x_list = unpack_x(xvec)
+        metrics_list = compute_metrics_conn(mesh_blocks, x_list)
+        # the interior written into a free-stream template of each block
+        w_list = packer.unpack_into(wvec, [winf.expand(s)
+                                           for s in pad_shapes])
+        return ref, winf, x_list, metrics_list, w_list
+
+    def res(wvec, xvec, params):
+        ref, winf, _, metrics_list, w_list = _prep(wvec, xvec, params)
+        return packer.pack(residual_list(w_list, metrics_list, topo, cfg,
+                                         ref, winf, extras_list))
+
+    def funcs(wvec, xvec, params):
+        ref, winf, x_list, metrics_list, w_list = _prep(wvec, xvec, params)
+        w_list = fill_halos(w_list, metrics_list, topo, ref, winf)
+        f = integrate_forces(w_list, x_list, metrics_list, wall_patches,
+                             ref, cfg, extras_list=extras_list)
+        return cost_functions(f, ref)
+
+    return AdjointFns(res=res, funcs=funcs, pack_x=pack_x,
+                      unpack_x=unpack_x)
+
+
+# ---------------------------------------------------------------------------
+# the adjoint linear solve
+# ---------------------------------------------------------------------------
+
+def solve_adjoint_system(fns: AdjointFns, solver, wvec, xvec, params, rhs,
+                         psi0=None, tol=1e-8, abs_tol=None, subspace=100,
+                         restarts=8) -> GmresResult:
+    """Solve (dR/dw)^T psi = rhs with matrix-free GMRES (reference:
+    adjointAPI.F90:661 solveAdjoint + setupPETScKsp:865). The vjp is built
+    once here, so the residual's forward (and its kernel) runs once a
+    solve and each GMRES iteration runs its backward."""
+    _, vjp_w = torch.func.vjp(lambda w: fns.res(w, xvec, params), wvec)
+
+    def matvec(v):
+        return vjp_w(v)[0]
+
+    nfns = solver._newton_fns()
+    if str(solver.options["adjointGlobalPreconditioner"]).lower() == \
+            "multigrid":
+        precond = _transposed_amg_pc(nfns, solver, wvec)
+    else:
+        precond = _transposed_line_pc(nfns, wvec)
+
+    if bool(solver.options["frozenTurbulence"]) and solver.cfg.rans:
+        # frozenTurbulence (reference inputADjoint): the transposed system
+        # on the mean-flow rows, the identity on the turbulence rows, so
+        # psi_turb = 0 and no dR_turb/dw couplings enter the totals
+        packer = nfns.packer
+        mask = (torch.arange(packer.nw, device=rhs.device) < 5).to(
+            rhs.dtype).repeat(packer.n // packer.nw)
+        mv0, pc0 = matvec, precond
+
+        def matvec(v):
+            return mask * mv0(mask * v) + (1.0 - mask) * v
+
+        def precond(v):
+            return mask * pc0(mask * v) + (1.0 - mask) * v
+
+        rhs = mask * rhs
+        if psi0 is not None:
+            psi0 = mask * psi0
+    # the restart-resolution monitor (reference: adjointMonitorStep and the
+    # KSPMonitor of setupPETScKsp, adjointAPI.F90:865)
+    monitor_step = int(solver.options["adjointMonitorStep"])
+    if not (bool(solver.options["printIterations"]) and monitor_step > 0):
+        return gmres(matvec, rhs, x0=psi0, m=subspace, restarts=restarts,
+                     tol=tol, atol=abs_tol or 0.0, precond=precond)
+    x, sol = psi0, None
+    iters = matvecs = next_print = 0
+    for _ in range(restarts):
+        sol = gmres(matvec, rhs, x0=x, m=subspace, restarts=1, tol=tol,
+                    atol=abs_tol or 0.0, precond=precond)
+        x = sol.x
+        iters += sol.iters
+        matvecs += sol.matvecs
+        if iters >= next_print or sol.converged:
+            print(f"  adjoint GMRES iter {iters:5d}  "
+                  f"res {sol.res_norm:.6e}  "
+                  f"rel {sol.res_norm / max(sol.b_norm, 1e-300):.3e}")
+            next_print = iters + monitor_step
+        if sol.converged:
+            break
+    return sol._replace(iters=iters, matvecs=matvecs)
+
+
+def _transposed_amg_pc(nfns, solver, wvec):
+    """M^-T by the Galerkin stencil multigrid: not ported."""
+    raise _todo("adjointGlobalPreconditioner='multigrid' (the transposed "
+                "AMG preconditioner)", "10")
+
+
+def _transposed_line_pc(nfns, wvec):
+    """M^-T for the block line-implicit PC (solvers/linpc.py
+    line_pc_apply_transposed), built once from the same PC data as NK's."""
+    from adflow_torch.solvers.linpc import line_pc_apply_transposed
+
+    data_list = nfns.collect_pc_data(wvec, PC_CFL)
+
+    def precond(v):
+        vb = nfns.packer.unpack(v)
+        return nfns.packer.pack(
+            [line_pc_apply_transposed(d, vv) for d, vv in zip(data_list, vb)])
+
+    return precond

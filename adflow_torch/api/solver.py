@@ -3,11 +3,15 @@ reference class ``ADFLOW``, adflow/pyADflow.py:60).
 
 The port runs the steady branches of ``__call__``: the ANK/NK driver
 (the default, solvers/newton.py) and the Runge-Kutta smoother
-(``useANKSolver: False, useNKSolver: False``); and ``evalFunctions``,
-residual and state access. The solver runs on ``cuda:0`` unless the caller passes
-another device (the tests pass ``device="cpu"``); it never falls back to
-the CPU on its own. Every branch and option that is not ported yet raises
-``NotImplementedError`` naming its ROADMAP.md item.
+(``useANKSolver: False, useNKSolver: False``); ``evalFunctions``, residual
+and state access; and the discrete adjoint (adjoint/api.py):
+``solveAdjoint``, ``evalFunctionsSens``,
+``computeJacobianVectorProductFwd/Bwd``, ``solveAdjointForRHS`` and
+``solveDirectForRHS``, which take numpy arrays or tensors and return numpy
+arrays, as the JAX package's do. The solver runs on ``cuda:0`` unless the
+caller passes another device (the tests pass ``device="cpu"``); it never
+falls back to the CPU on its own. Every branch and option that is not
+ported yet raises ``NotImplementedError`` naming its ROADMAP.md item.
 """
 
 from __future__ import annotations
@@ -456,6 +460,215 @@ class ADFLOW:
             out.append(w)
             ofs += n
         self.w_list = out
+
+    # ------------------------------------------------------------------
+    # adjoint and derivative products (reference: pyADflow.solveAdjoint:4052,
+    # evalFunctionsSens:1673, computeJacobianVectorProductFwd:4557/Bwd:4814)
+    # ------------------------------------------------------------------
+    def _newton_fns(self):
+        """The Newton functions, built on first use and kept, as the JAX
+        package keeps them: a later aero problem reuses the first one's
+        reference state in the adjoint's PC."""
+        from adflow_torch.solvers import newton
+        if getattr(self, "_nfns", None) is None:
+            self._nfns = newton.build_newton_fns(
+                self.w_list, self.metrics_list, self.topo, self.cfg,
+                self.ref, self.winf, self.extras_list)
+        return self._nfns
+
+    def _newton_packer(self):
+        return self._newton_fns().packer
+
+    def _adjoint_fns(self):
+        """The adjoint's functions, built on first use and kept (their base
+        reference state is the first aero problem's, as in the JAX
+        package)."""
+        from adflow_torch.adjoint.api import build_adjoint_fns
+        if getattr(self, "_afns", None) is None:
+            self._afns = build_adjoint_fns(self)
+        return self._afns
+
+    def _ap_params(self, ap: AeroProblem):
+        """The design variables as 0-d tensors (the reference's extra-DV
+        map alpha/beta/mach, P, T, Re and the reference point,
+        pyADflow.py:6444-6461). The grid-motion variables are refused by
+        ``setAeroProblem``."""
+        kw = dict(dtype=self.dtype, device=self.device)
+        out = {k: torch.tensor(v, **kw) for k, v in (
+            ("alpha", ap.alpha), ("beta", ap.beta), ("mach", ap.mach),
+            ("T", ap.T), ("P", ap.P),
+            ("xref", [ap.xRef, ap.yRef, ap.zRef]))}
+        if ap.reynolds and ap.reynolds > 0:
+            out["reynolds"] = torch.tensor(ap.reynolds, **kw)
+        return out
+
+    def _wx_vecs(self):
+        wvec = self._newton_packer().pack_w(self.w_list)
+        return wvec, self._adjoint_fns().pack_x(self.x_list)
+
+    def _as_vec(self, a):
+        """A flat tensor on the solver's device and dtype from a numpy array
+        or a tensor."""
+        t = a if torch.is_tensor(a) else torch.tensor(np.asarray(a))
+        return t.to(dtype=self.dtype, device=self.device).reshape(-1)
+
+    def _adjoint_restarts(self):
+        return max(1, int(self.options["adjointMaxIter"])
+                   // int(self.options["adjointSubspaceSize"]))
+
+    def solveAdjoint(self, ap: AeroProblem, objective: str):
+        """Solve dR/dw^T psi = dI/dw for one cost function; psi is cached
+        per (ap, objective) and warm-starts the next solve when
+        ``restartAdjoint`` is on (reference adjointAPI.F90:742-752).
+        Returns psi as a tensor on the solver's device."""
+        from adflow_torch.adjoint.api import solve_adjoint_system
+        self.setAeroProblem(ap)
+        fns = self._adjoint_fns()
+        wvec, xvec = self._wx_vecs()
+        params = self._ap_params(ap)
+        key = objective.lower()
+        dIdw = torch.func.grad(
+            lambda w: fns.funcs(w, xvec, params)[key])(wvec)
+        if not hasattr(self, "_psi_cache"):
+            self._psi_cache = {}
+        psi0 = (self._psi_cache.get((ap.name, key))
+                if bool(self.options["restartAdjoint"]) else None)
+        sol = solve_adjoint_system(
+            fns, self, wvec, xvec, params, dIdw, psi0=psi0,
+            tol=float(self.options["adjointL2Convergence"]),
+            abs_tol=float(self.options["adjointL2ConvergenceRel"]),
+            subspace=int(self.options["adjointSubspaceSize"]),
+            restarts=self._adjoint_restarts())
+        self._psi_cache[(ap.name, key)] = sol.x
+        self.adjoint_info = sol
+        self.adjointFailed = not sol.converged
+        return sol.x
+
+    def evalFunctionsSens(self, ap: AeroProblem, funcsSens: dict,
+                          evalFuncs: Optional[Sequence[str]] = None):
+        """Total derivatives of each function with respect to alpha, beta,
+        mach, T, P, rho, xref, xv (and reynolds) by one adjoint solve each:
+        dI/d* = dI/d*|direct - psi^T dR/d*."""
+        from adflow_torch.core.refstate import R_GAS
+        self.setAeroProblem(ap)
+        if evalFuncs is None:
+            evalFuncs = ap.evalFuncs
+        fns = self._adjoint_fns()
+        wvec, xvec = self._wx_vecs()
+        params = self._ap_params(ap)
+        for name in evalFuncs:
+            key = name.lower()
+            psi = self.solveAdjoint(ap, key)
+            gI_x, gI_p = torch.func.grad(
+                lambda x, p: fns.funcs(wvec, x, p)[key], argnums=(0, 1))(
+                    xvec, params)
+            _, vjp_xp = torch.func.vjp(
+                lambda x, p: fns.res(wvec, x, p), xvec, params)
+            gR_x, gR_p = vjp_xp(psi)
+            tot = {k: gI_p[k] - gR_p[k] for k in params}
+            sens = {k: float(tot[k])
+                    for k in ("alpha", "beta", "mach", "T", "P")}
+            sens["xref"] = tot["xref"].cpu().numpy()
+            sens["xv"] = (gI_x - gR_x).cpu().numpy()
+            # the free-stream density at constant T (reference iDV['rho'],
+            # pyADflow.py:6451): rho = P / (R T), so dI/drho = R T dI/dP
+            sens["rho"] = R_GAS * ap.T * sens["P"]
+            if "reynolds" in params:
+                sens["reynolds"] = float(tot["reynolds"])
+            funcsSens[f"{ap.name}_{name}"] = sens
+        return funcsSens
+
+    def computeJacobianVectorProductFwd(self, wDot=None, xVDot=None,
+                                        residualDeriv=False, funcDeriv=False,
+                                        **kwargs):
+        """Forward products dR/dw wDot + dR/dx xVDot and the same of the
+        functions (reference adjointAPI.F90:11), exact by
+        ``torch.func.jvp``; numpy out."""
+        fns = self._adjoint_fns()
+        wvec, xvec = self._wx_vecs()
+        params = self._ap_params(self.curAP)
+        wd = torch.zeros_like(wvec) if wDot is None else self._as_vec(wDot)
+        xd = torch.zeros_like(xvec) if xVDot is None else self._as_vec(xVDot)
+        out = []
+        if residualDeriv:
+            _, rdot = torch.func.jvp(lambda w, x: fns.res(w, x, params),
+                                     (wvec, xvec), (wd, xd))
+            out.append(rdot.cpu().numpy())
+        if funcDeriv:
+            _, fdot = torch.func.jvp(lambda w, x: fns.funcs(w, x, params),
+                                     (wvec, xvec), (wd, xd))
+            out.append({k: float(v) for k, v in fdot.items()})
+        return out[0] if len(out) == 1 else tuple(out)
+
+    def computeJacobianVectorProductBwd(self, resBar=None, funcsBar=None,
+                                        wDeriv=False, xVDeriv=False,
+                                        **kwargs):
+        """Reverse products resBar^T dR/d(w, x) plus the gradient of the
+        weighted functions (reference adjointAPI.F90:97); numpy out."""
+        fns = self._adjoint_fns()
+        wvec, xvec = self._wx_vecs()
+        params = self._ap_params(self.curAP)
+        gw, gx = torch.zeros_like(wvec), torch.zeros_like(xvec)
+        if resBar is not None:
+            _, vjp = torch.func.vjp(lambda w, x: fns.res(w, x, params),
+                                    wvec, xvec)
+            dw, dx = vjp(self._as_vec(resBar))
+            gw, gx = gw + dw, gx + dx
+        if funcsBar is not None:
+            def weighted(w, x):
+                f = fns.funcs(w, x, params)
+                return sum(float(v) * f[k.lower()]
+                           for k, v in funcsBar.items())
+            dw, dx = torch.func.grad(weighted, argnums=(0, 1))(wvec, xvec)
+            gw, gx = gw + dw, gx + dx
+        out = []
+        if wDeriv:
+            out.append(gw.cpu().numpy())
+        if xVDeriv:
+            out.append(gx.cpu().numpy())
+        return out[0] if len(out) == 1 else tuple(out)
+
+    def solveAdjointForRHS(self, inVec, relTol=None):
+        """Solve (dR/dw)^T psi = inVec for any right-hand side (reference
+        pyADflow.solveAdjointForRHS:4222); numpy out."""
+        from adflow_torch.adjoint.api import solve_adjoint_system
+        if relTol is None:
+            relTol = float(self.options["adjointL2Convergence"])
+        fns = self._adjoint_fns()
+        wvec, xvec = self._wx_vecs()
+        sol = solve_adjoint_system(
+            fns, self, wvec, xvec, self._ap_params(self.curAP),
+            self._as_vec(inVec), tol=relTol,
+            subspace=int(self.options["adjointSubspaceSize"]),
+            restarts=self._adjoint_restarts())
+        return sol.x.cpu().numpy()
+
+    def solveDirectForRHS(self, inVec, relTol=None):
+        """Solve the direct system (dR/dw) x = inVec (reference
+        pyADflow.solveDirectForRHS:4242) by matrix-free GMRES with the line
+        PC. The PC takes ``collect_pc_data``'s kappa 0.25, not the solver's
+        ``linePCKappa``, as in the JAX package; numpy out."""
+        from adflow_torch.adjoint.api import PC_CFL
+        from adflow_torch.solvers.krylov import gmres
+        from adflow_torch.solvers.newton import pc_apply_vec
+        if relTol is None:
+            relTol = float(self.options["adjointL2Convergence"])
+        nfns = self._newton_fns()
+        fns = self._adjoint_fns()
+        wvec, xvec = self._wx_vecs()
+        params = self._ap_params(self.curAP)
+
+        def matvec(v):
+            return torch.func.jvp(lambda w: fns.res(w, xvec, params),
+                                  (wvec,), (v,))[1]
+
+        data_list = nfns.collect_pc_data(wvec, PC_CFL)
+        sol = gmres(matvec, self._as_vec(inVec),
+                    m=int(self.options["adjointSubspaceSize"]),
+                    restarts=self._adjoint_restarts(), tol=relTol,
+                    precond=lambda v: pc_apply_vec(data_list, nfns.packer,
+                                                   v))
+        return sol.x.cpu().numpy()
 
     def setOption(self, name: str, value):
         self.options = self.options.replace(**{name: value})

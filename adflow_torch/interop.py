@@ -57,3 +57,9 @@ def refstate_from_dict(fields) -> ReferenceState:
     kw = {k: (np.asarray(v) if np.ndim(v) > 0 else v)
           for k, v in dict(fields).items() if k in names}
     return ReferenceState(**kw)
+
+
+def params_from_numpy(params, device="cpu", dtype=torch.float64):
+    """The adjoint's design variables from the JAX package's ``_ap_params``
+    dict (its values as numpy): each a tensor on ``device``."""
+    return {k: _tensor(v, device, dtype) for k, v in dict(params).items()}

@@ -68,6 +68,40 @@ K2_BLOCKS_PER_SM = 4
 # and the one the next step's plane lands in), two planes of N_DERIVED
 # derived fields, N_FACE floats per j-, k- and i-face of a plane
 CELL_PLANES, N_CELL, N_DERIVED, N_FACE = 5, 6, 4, 5
+# The kernel's offsets are 32-bit (the launch refuses a w5 of more floats,
+# inviscid_residual.cu; K1 keeps 64-bit offsets): the most floats the padded
+# w5 of one launch may hold. A larger block is covered by several launches,
+# one a slab of i-planes (``k2_slabs``).
+W5_MAX_FLOATS = 2**31 - 1
+
+
+def k2_slabs(ni, nj, nk):
+    """The slabs of interior i-planes, ``[(i0, n), ...]``, that K2 covers a
+    block of ``ni x nj x nk`` cells in, one launch each: as few as keep each
+    slab's padded ``w5``, ``5 (n+4) (nj+4) (nk+4)`` floats, within the
+    kernel's 32-bit offsets, of near-equal length. One slab, the whole
+    block, below that size. Raises ValueError where one plane is too large
+    (``5 * 5 (nj+4) (nk+4)`` floats)."""
+    most = W5_MAX_FLOATS // (5 * (nj + 4) * (nk + 4)) - 4
+    if most < 1:
+        raise ValueError(
+            f"K2: a {ni}x{nj}x{nk} block is past the kernel's 32-bit "
+            f"offsets even one i-plane at a time (5 (nj+4) (nk+4) floats "
+            f"a padded plane)")
+    count = -(-ni // most)
+    size = -(-ni // count)
+    return [(i0, min(size, ni - i0)) for i0 in range(0, ni, size)]
+
+
+def slab_operands(tensors, i0, n):
+    """The eight operands of interior planes ``i0 .. i0 + n - 1``: views
+    along the leading (i) axis, so contiguous where the operands are, with
+    the planes of the whole block each reads (two halo planes of ``w5`` and
+    ``p`` on each side, one ring of extended faces)."""
+    w5, p, siE, sjE, skE, porI, porJ, porK = tensors
+    return (w5[i0:i0 + n + 4], p[i0:i0 + n + 4], siE[i0:i0 + n + 3],
+            sjE[i0:i0 + n + 2], skE[i0:i0 + n + 2], porI[i0:i0 + n + 1],
+            porJ[i0:i0 + n], porK[i0:i0 + n])
 
 
 class K2Plan(NamedTuple):
@@ -96,7 +130,8 @@ def k2_tile_plan(ni, nj, nk, si=None, n_sm=_nvcc.N_SM):
     (nk+4) + k0``, 20 bytes a cell of ``w5`` and 4 of ``p``, so that needs
     ``nk + 4`` a multiple of 4 (k0 is a multiple of ``tk``, itself one of 4)
     and no ragged k tile. The kernel's offsets are 32-bit: its launch
-    refuses a block whose ``w5`` holds 2^31 floats or more."""
+    refuses a block whose ``w5`` holds 2^31 floats or more, so ``_launch``
+    plans each slab of ``k2_slabs`` on its own."""
     tj, tk = K2_TILE
     grid = (-(-nk // tk), -(-nj // tj))
     if si is None:
@@ -164,29 +199,36 @@ def check_operands(tensors):
 
 def _launch(tensors, vis2, vis4, expo, plan=None):
     """Check the operands and launch the kernel with ``plan`` (default
-    ``k2_tile_plan``); returns (ni, nj, nk, 5)."""
+    ``k2_tile_plan``), once for each slab of ``k2_slabs``; returns (ni, nj,
+    nk, 5)."""
     global LAUNCHES
-    w5, p = tensors[:2]
-    if not w5.is_cuda:
-        raise ValueError(f"w5: on {w5.device}, the kernel runs on CUDA")
+    if not tensors[0].is_cuda:
+        raise ValueError(f"w5: on {tensors[0].device}, the kernel runs on "
+                         f"CUDA")
     ni, nj, nk = check_operands(tensors)
-    plan = plan or k2_tile_plan(ni, nj, nk, n_sm=_nvcc.n_sm(w5.device))
-    # the plan's 16-byte copies assume aligned bases
-    aligned = w5.data_ptr() % 16 == 0 and p.data_ptr() % 16 == 0
-    width = plan.copy_width if aligned else 4
+    slabs = k2_slabs(ni, nj, nk)
+    dev = tensors[0].device
     lib = _lib()
-    with torch.cuda.device(w5.device):
-        out = torch.empty((ni, nj, nk, 5), dtype=torch.float32,
-                          device=w5.device)
-        stream = torch.cuda.current_stream(w5.device).cuda_stream
-        err = lib.inviscid_residual_launch(
-            *(t.data_ptr() for t in tensors), out.data_ptr(), ni, nj, nk,
-            plan.tj, plan.tk, plan.threads, plan.si, width, plan.smem_bytes,
-            float(vis2), float(vis4), float(expo), stream)
-    if err != 0:
-        raise RuntimeError(f"inviscid_residual_launch failed: CUDA error "
-                           f"{err}")
-    LAUNCHES += 1
+    with torch.cuda.device(dev):
+        out = torch.empty((ni, nj, nk, 5), dtype=torch.float32, device=dev)
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        for i0, n in slabs:
+            ops = tensors if len(slabs) == 1 else slab_operands(tensors, i0,
+                                                                n)
+            o = out[i0:i0 + n]
+            pl = plan or k2_tile_plan(n, nj, nk, n_sm=_nvcc.n_sm(dev))
+            # the plan's 16-byte copies assume aligned bases
+            aligned = ops[0].data_ptr() % 16 == 0 and \
+                ops[1].data_ptr() % 16 == 0
+            err = lib.inviscid_residual_launch(
+                *(t.data_ptr() for t in ops), o.data_ptr(), n, nj, nk,
+                pl.tj, pl.tk, pl.threads, pl.si,
+                pl.copy_width if aligned else 4, pl.smem_bytes, float(vis2),
+                float(vis4), float(expo), stream)
+            if err != 0:
+                raise RuntimeError(f"inviscid_residual_launch failed: CUDA "
+                                   f"error {err}")
+            LAUNCHES += 1
     return out
 
 

@@ -218,33 +218,60 @@ def rans_residual_reference(w6, siE, sjE, skE, vol, xc, dist, porI, porJ,
 
 
 class _FusedRans(torch.autograd.Function):
-    """Kernel forward; backward and jvp through the plain version."""
+    """Kernel forward; backward and jvp through the plain version.
+
+    ``apply(*tensors, mu_inf, t_inf_dim, consts)``: the ten operands, the
+    two flow constants, each a float or a 0-d tensor, and (vis2, vis4,
+    expo, use_ft2, turb_scale). A flow constant given as a tensor is an
+    input of its own, so that derivatives reach it (the adjoint makes both
+    depend on the design variables); the launch reads its value, which is
+    legal here since a forward sees its inputs unwrapped under
+    ``torch.func``."""
 
     @staticmethod
     def forward(*args):
-        return _launch(args[:10], *args[10])
+        vis2, vis4, expo, use_ft2, turb_scale = args[12]
+        return _launch(args[:10], vis2, vis4, expo, float(args[10]),
+                       float(args[11]), use_ft2, turb_scale)
 
     @staticmethod
     def setup_context(ctx, inputs, output):
-        ctx.consts = inputs[10]
-        ctx.save_for_backward(*inputs[:10])
-        ctx.save_for_forward(*inputs[:10])
+        ctx.consts = inputs[12]
+        # None where the input is a tensor, saved below in order
+        ctx.args = tuple(None if torch.is_tensor(a) else a
+                         for a in inputs[:12])
+        saved = [a for a in inputs[:12] if torch.is_tensor(a)]
+        ctx.save_for_backward(*saved)
+        ctx.save_for_forward(*saved)
 
     @staticmethod
     def backward(ctx, grad_out):
-        prim = ctx.saved_tensors
-        _, vjp = torch.func.vjp(
-            lambda *a: rans_residual_reference(*a, *ctx.consts), *prim)
-        return (*vjp(grad_out), None)
+        _, vjp = torch.func.vjp(_plain_of_saved(ctx), *ctx.saved_tensors)
+        grads = iter(vjp(grad_out))
+        return (*(next(grads) if a is None else None for a in ctx.args),
+                None)
 
     @staticmethod
     def jvp(ctx, *tangents):
         prim = ctx.saved_tensors
+        tang = [t for a, t in zip(ctx.args, tangents[:12]) if a is None]
         tang = tuple(torch.zeros_like(p) if t is None else t
-                     for p, t in zip(prim, tangents[:10]))
-        _, out = torch.func.jvp(
-            lambda *a: rans_residual_reference(*a, *ctx.consts), prim, tang)
+                     for p, t in zip(prim, tang))
+        _, out = torch.func.jvp(_plain_of_saved(ctx), prim, tang)
         return out
+
+
+def _plain_of_saved(ctx):
+    """The plain version as a function of the saved tensor inputs."""
+    vis2, vis4, expo, use_ft2, turb_scale = ctx.consts
+
+    def plain(*tensors):
+        it = iter(tensors)
+        a = [next(it) if v is None else v for v in ctx.args]
+        return rans_residual_reference(*a[:10], vis2, vis4, expo, a[10],
+                                       a[11], use_ft2, turb_scale)
+
+    return plain
 
 
 def fused_rans_residual(w6, siE, sjE, skE, vol, xc, dist, porI, porJ, porK,
@@ -252,15 +279,19 @@ def fused_rans_residual(w6, siE, sjE, skE, vol, xc, dist, porI, porJ, porK,
                         turb_scale):
     """All six RANS-SA residual channels of one halo-filled block,
     (ni, nj, nk, 6). Same signature and output as the JAX package's
-    ``fused_rans_residual`` (pallas_rans.py:635)."""
-    consts = (float(vis2), float(vis4), float(expo), float(mu_inf),
-              float(t_inf_dim), bool(use_ft2), float(turb_scale))
+    ``fused_rans_residual`` (pallas_rans.py:635). ``mu_inf`` and
+    ``t_inf_dim`` may be 0-d tensors, and derivatives then reach them."""
+    mu_inf, t_inf_dim = (a if torch.is_tensor(a) else float(a)
+                         for a in (mu_inf, t_inf_dim))
+    consts = (float(vis2), float(vis4), float(expo), bool(use_ft2),
+              float(turb_scale))
     tensors = (w6, siE, sjE, skE, vol, xc, dist, porI, porJ, porK)
     if w6.is_cuda:
-        return _FusedRans.apply(*tensors, consts)
+        return _FusedRans.apply(*tensors, mu_inf, t_inf_dim, consts)
     if any(t.is_cuda for t in tensors):
         raise ValueError("fused_rans_residual: operands on mixed devices")
-    return rans_residual_reference(*tensors, *consts)
+    return rans_residual_reference(*tensors, *consts[:3], mu_inf, t_inf_dim,
+                                   *consts[3:])
 
 
 def sample_operands(dims, device, seed=0, amp=0.03):

@@ -125,16 +125,32 @@ def _outward_normals(metrics, op: BCOp):
     return n / torch.clamp(mag, min=1e-30)
 
 
+def _records(w, metrics, ref: ReferenceState, winf) -> bool:
+    """Whether autograd records the ghost states: grad mode on and any of
+    their inputs requiring grad (reverse mode, the adjoint's vjp in w, x or
+    the flow conditions; forward mode and the solvers' paths do not)."""
+    if not torch.is_grad_enabled():
+        return False
+    ts = (w, winf, metrics.si, metrics.sj, metrics.sk, *vars(ref).values())
+    return any(isinstance(t, torch.Tensor) and t.requires_grad for t in ts)
+
+
 def apply_bcs(w, metrics, ops: Sequence[BCOp], ref: ReferenceState, winf):
-    """Fill all physical-BC halo layers of one block; returns a new tensor."""
+    """Fill all physical-BC halo layers of one block; returns a new tensor.
+
+    Where autograd records (``_records``), each mirror layer is read as a
+    copy: a view of ``w`` that the ghost state's backward saved would be
+    invalidated by the next write into ``w``."""
+    copy = _records(w, metrics, ref, winf)
     w = w.clone()
     for op in ops:
         if op.bc is BCType.B2B_MATCH:
             continue
         nhat = _outward_normals(metrics, op)
         for d in range(H):
-            w[op.ghost[d]] = _ghost_state(op, w[op.mirror[d]], nhat, ref,
-                                          winf)
+            mirror = w[op.mirror[d]]
+            w[op.ghost[d]] = _ghost_state(
+                op, mirror.clone() if copy else mirror, nhat, ref, winf)
     return w
 
 

@@ -51,6 +51,22 @@ def tridiag_solve_factored(factors, rhs):
     return x
 
 
+def tridiag_solve_factored_transposed(factors, rhs):
+    """Solve with the transposed systems, T^T x = rhs, from the factors of
+    T by ``tridiag_factor``: T = diag(denom) (I + N_g) U_cp with N_g the
+    subdiagonal g and U_cp the unit upper bidiagonal of cp, so T^-T =
+    diag(denom)^-1 (I + N_g)^-T U_cp^-T: a forward sweep with cp, a
+    backward sweep with g, then the division."""
+    g, den, cp = factors
+    n = rhs.shape[0]
+    x = rhs.clone()
+    for c in range(1, n):
+        x[c].addcmul_(cp[c - 1][..., None], x[c - 1], value=-1.0)
+    for c in range(n - 2, -1, -1):
+        x[c].addcmul_(g[c + 1][..., None], x[c + 1], value=-1.0)
+    return x / den[..., None]
+
+
 def tridiag_solve(lower, diag, upper, rhs):
     """Batched Thomas algorithm along axis 0.
 

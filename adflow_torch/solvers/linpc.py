@@ -18,9 +18,12 @@ keeps the factors instead of L, D and U. An apply is then one batched
 5x5 product per cell along the line in each direction, which changes the
 result by round-off only.
 
+The adjoint's transposed apply (``line_pc_apply_transposed``) uses the
+same stored factors, transposed, with the sweeps in reverse order; the JAX
+package factors the transposed blocks at every apply instead.
+
 Not ported: the matrix (characteristic) split for upwind and matrix
-dissipation (ROADMAP.md queue 1 item 9) and ``line_pc_apply_transposed``,
-the adjoint's PC (item 8).
+dissipation (ROADMAP.md queue 1 item 9).
 """
 
 from __future__ import annotations
@@ -36,7 +39,8 @@ from adflow_torch.core.refstate import GAMMA
 from adflow_torch.physics.fluxes import extended_face_areas, spectral_radii
 from adflow_torch.physics.thermo import IMX, IMZ, IRHO, IRHOE, pressure
 from adflow_torch.physics.timestep import viscous_spectral_radii
-from adflow_torch.solvers.dadi import tridiag_factor, tridiag_solve_factored
+from adflow_torch.solvers.dadi import (
+    tridiag_factor, tridiag_solve_factored, tridiag_solve_factored_transposed)
 
 
 def _euler_flux_single(w5, svec):
@@ -123,6 +127,27 @@ def block_tridiag_solve_factored(factors, rhs):
     for c in range(n - 2, -1, -1):
         x[c].baddbmm_(Cp[c], x[c + 1], alpha=-1.0)
     return x.reshape(rhs.shape)
+
+
+def block_tridiag_solve_factored_transposed(factors, rhs):
+    """Solve the transposed systems, T^T x = rhs, with the factors of T by
+    ``block_tridiag_factor``; rhs (n, ..., b).
+
+    T = Dm (I + N_G) U_Cp, with Dm the block diagonal of denom_c, N_G the
+    block subdiagonal of G and U_Cp the unit block upper bidiagonal of Cp.
+    So T^-T = Dinv^T (I + N_G)^-T U_Cp^-T: a forward sweep with Cp^T, a
+    backward sweep with G^T, then Dinv^T a cell."""
+    G, Dinv, Cp = factors
+    n, b = rhs.shape[0], rhs.shape[-1]
+    nb = math.prod(rhs.shape[1:-1])
+    G, Dinv, Cp = (a.reshape(n, nb, b, b).transpose(-1, -2)
+                   for a in (G, Dinv, Cp))
+    x = rhs.reshape(n, nb, b, 1).clone()
+    for c in range(1, n):
+        x[c].baddbmm_(Cp[c - 1], x[c - 1], alpha=-1.0)
+    for c in range(n - 2, -1, -1):
+        x[c].baddbmm_(G[c + 1], x[c + 1], alpha=-1.0)
+    return (Dinv @ x).reshape(rhs.shape)
 
 
 def block_tridiag_solve(L, D, U, rhs):
@@ -248,6 +273,14 @@ def build_line_pc(w, metrics, cfg, ref, dtinv, axes=(1,),
     return line_pc_data(axes, mean_ops, turb_ops, dscalar, ts)
 
 
+def _turb_unscale(data: LinePCData, like):
+    """(nw,) row factors S^-1: 1 on the mean flow, 1/turbResScale on the
+    turbulence rows."""
+    inv = tuple(1.0 / s for s in data.turb_scale)
+    return torch.tensor((1.0,) * 5 + inv, dtype=like.dtype,
+                        device=like.device)
+
+
 def line_pc_apply(data: LinePCData, v):
     """Apply M^-1 v on one block, v: (ni,nj,nk,nw).
 
@@ -258,10 +291,7 @@ def line_pc_apply(data: LinePCData, v):
     if data.turb_scale is not None and v.shape[-1] > 5:
         # PC = S*T on the scaled turbulence rows: un-scale the input once,
         # then apply the unscaled factors
-        inv = torch.tensor((1.0,) * 5 + tuple(1.0 / s for s in
-                                              data.turb_scale),
-                           dtype=v.dtype, device=v.device)
-        z = z * inv
+        z = z * _turb_unscale(data, v)
     for i, ax in enumerate(data.axes):
         if i > 0:
             z = z * data.dscalar[..., None]
@@ -271,4 +301,30 @@ def line_pc_apply(data: LinePCData, v):
             zt = tridiag_solve_factored(data.turb[i], zb[..., 5:])
             zl = torch.cat([zl, zt], dim=-1)
         z = torch.movedim(zl, 0, ax)
+    return z
+
+
+def line_pc_apply_transposed(data: LinePCData, v):
+    """Apply M^-T v on one block, v: (ni,nj,nk,nw) (the adjoint's PC).
+
+    M^-1 = T_n^-1 D ... D T_1^-1 S^-1 (``line_pc_apply``), so M^-T =
+    S^-1 T_1^-T D ... D T_n^-T: the transposed line solves in reverse
+    order of the axes, each from the transposes of the stored factors
+    (``block_tridiag_solve_factored_transposed``,
+    ``dadi.tridiag_solve_factored_transposed``), and the turbulence rows'
+    un-scale after the solves."""
+    z = v
+    for i in reversed(range(len(data.axes))):
+        ax = data.axes[i]
+        zb = torch.movedim(z, ax, 0)
+        zl = block_tridiag_solve_factored_transposed(data.mean[i],
+                                                     zb[..., :5])
+        if z.shape[-1] > 5 and data.turb[i] is not None:
+            zt = tridiag_solve_factored_transposed(data.turb[i], zb[..., 5:])
+            zl = torch.cat([zl, zt], dim=-1)
+        z = torch.movedim(zl, 0, ax)
+        if i > 0:
+            z = z * data.dscalar[..., None]
+    if data.turb_scale is not None and z.shape[-1] > 5:
+        z = z * _turb_unscale(data, z)
     return z

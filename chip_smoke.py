@@ -17,14 +17,26 @@ well). Then, each phase timed:
            breakdown;
   [9]-[11] K2 against its plain version, on an odd block with a segment
            that does not divide ni, and two of its launches against each
-           other (bitwise); jvp and vjp through both kernels'
-           autograd.Functions on the card; a small Euler ANK solve on the
-           card against the CPU;
+           other and against three launches on slabs of i-planes, as a
+           block past its 32-bit offsets takes (bitwise); jvp and vjp
+           through both kernels' autograd.Functions on the card; a small
+           Euler ANK solve on the card against the CPU;
   [12]     the main path: the default ANK solve of the Euler wing at
            256x64x64 through ``ADFLOW``, K2 launches counted per step;
   [13]     2 ANK steps of the RANS-SA wing at 64x24x16 through K1;
   [14]     K2's tile plan, registers and shared bytes, its times, one ANK
-           step broken down, two ANK steps under torch.profiler.
+           step broken down, two ANK steps under torch.profiler;
+  [15]     small adjoints (``evalFunctionsSens``) on the card against the
+           CPU: the 16x8x8 Euler wing through K2, with the dot-product
+           identity; the 16x8x8 RANS-SA wing through K1, against the CPU
+           with frozen turbulence and, unfrozen, against the same card run
+           without the kernels (``useBlockettes: False``); exact launch
+           counts;
+  [16]     the main path's adjoint: ``evalFunctionsSens`` of cl on [12]'s
+           solved 256x64x64 Euler wing, 40 GMRES iterations, K2 launches
+           counted; the transposed PC's build and apply and one vjp
+           matvec timed; the dot-product identity at full width; three
+           adjoint GMRES iterations under torch.profiler.
 Any failed check raises, so the exit code is not 0. The last line is
 ``{"ok": true, "device": {...}}``; the line before it lists the kernels with
 their launches, errors and times (``ms`` by CUDA events around calls of the
@@ -68,6 +80,33 @@ ANK_SOLVE_RTOL = 1e-2
 # the RANS-SA ANK path at the size of __graft_entry__.py
 RANS_ANK_DIMS = (64, 24, 16)
 RANS_ANK_STEPS = 2
+
+# [15], the small adjoints at the seeded perturbed free stream, the same
+# GMRES budget on the card (f32) and the CPU (f64). The Euler adjoint
+# converges to 1e-6 there (about 200 iterations); the RANS-SA one is held
+# against the CPU with frozen turbulence for a fixed 100 iterations, where
+# f32 and f64 still follow one Krylov path (unfrozen, far from
+# convergence, a CPU run in f32 saw the two part ways). K1 against the
+# plain route, both f32 on the card, runs unfrozen: psi is then not zero
+# on the SA row, so its d/dmu_inf and d/dT through K1 reach the totals.
+ADJ_DIMS = (16, 8, 8)
+ADJ_EULER_OPTS = {"adjointMaxIter": 300}
+ADJ_RANS_OPTS = {"frozenTurbulence": True, "adjointSubspaceSize": 100,
+                 "adjointMaxIter": 100}
+ADJ_ROUTE_OPTS = dict(ADJ_RANS_OPTS, frozenTurbulence=False)
+ADJ_EULER_RTOL = 2e-3   # Euler totals and |xv|, f32 card vs f64 CPU
+ADJ_RANS_RTOL = 1e-2    # RANS totals and |xv|, f32 card vs f64 CPU
+# RANS totals through K1 against the plain route, both f32 on the card: the
+# same linearization (K1's backward is the plain version), summed in
+# another order
+ROUTE_RTOL = 1e-4
+# <J v, u> = <v, J^T u> in f32: both products carry the f32 rounding of
+# face-flux differences that cancel (8.5e-8 on the small wing and 3.7e-8
+# at full width on an H100); a wrong transpose is O(1)
+DOT_RTOL_F32 = 1e-2
+# [16], the main path's adjoint: depth cut to 40 GMRES iterations
+FULL_ADJ_OPTS = {"adjointSubspaceSize": 40, "adjointMaxIter": 40,
+                 "printIterations": True, "adjointMonitorStep": 10}
 
 # peak rates for the bound: (device-memory bytes/s, f32 FLOP/s outside the
 # tensor cores), NVIDIA data sheets; the SXM part is the default
@@ -318,6 +357,24 @@ def check_k2_plan_and_bitwise(dims, si):
     assert max(rel) < SMALL_RTOL, f"K2 disagrees with its plain version: {rel}"
     assert same, "K2 launches differ"
 
+    # a block past the 32-bit offsets is one launch a slab of i-planes: the
+    # limit lowered to make three slabs of this block
+    limit = cuda_inviscid.W5_MAX_FLOATS
+    cuda_inviscid.W5_MAX_FLOATS = 5 * (dims[1] + 4) * (dims[2] + 4) * (
+        -(-dims[0] // 3) + 4)
+    try:
+        slabs = cuda_inviscid.k2_slabs(*dims)
+        before = cuda_inviscid.LAUNCHES
+        c = cuda_inviscid.fused_inviscid_residual(*tensors, *consts)
+        torch.cuda.synchronize()
+        n = cuda_inviscid.LAUNCHES - before
+    finally:
+        cuda_inviscid.W5_MAX_FLOATS = limit
+    same = bool(torch.equal(a, c))
+    print(f"  K2 in slabs {slabs}: {n} launches, bitwise equal to one "
+          f"launch {same}")
+    assert n == len(slabs) == 3 and same, "K2's slabs differ"
+
 
 def k2_operands(solver):
     """K2's operands and constants as the main path gives them, at the
@@ -400,6 +457,15 @@ def print_steps(info, kernel):
               f"launches {r.res_evals}")
 
 
+def perturbed_state(solver, seed=0, amp=1e-3):
+    """The solver's (free-stream) interior states plus ``amp`` times each
+    channel's largest magnitude times seeded normal noise, as numpy."""
+    w = solver.getStates().cpu().numpy().reshape(-1, solver.ref.nw)
+    rng = np.random.default_rng(seed)
+    return (w + amp * np.abs(w).max(axis=0)
+            * rng.standard_normal(w.shape)).reshape(-1)
+
+
 def small_ank_parity():
     """The port's default ANK solve of the 16x8x8 Euler wing on the card
     (f32, through K2) against the same solve on the CPU (f64, plain), 3 steps
@@ -418,10 +484,7 @@ def small_ank_parity():
         ap = AeroProblem(**EULER)
         solver.setAeroProblem(ap)
         if w0 is None:
-            w = solver.getStates().numpy().reshape(-1, 5)
-            rng = np.random.default_rng(0)
-            w0 = (w + 1e-3 * np.abs(w).max(axis=0)
-                  * rng.standard_normal(w.shape)).reshape(-1)
+            w0 = perturbed_state(solver)
         solver.setStates(w0)
         solver(ap)
         runs[device] = (solver.solve_info, solver.evalFunctions(ap, {}),
@@ -569,13 +632,13 @@ def ank_breakdown(solver):
                           "inviscid_residual_kernel")
 
 
-def profile_device(run, label, kernel):
+def profile_device(run, label, kernel=None):
     """``run()`` under torch.profiler: its wall time, the device's busy
     time, device ops and idle share, and the kernels that took most of the
     device time. Returns the device ms a launch of ``kernel`` (a name in
-    the profile): the kernel's own time, with no host time in it, which CUDA
-    events around a call hold where the host's call takes longer than the
-    kernel."""
+    the profile), if given: the kernel's own time, with no host time in it,
+    which CUDA events around a call hold where the host's call takes longer
+    than the kernel."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -597,10 +660,191 @@ def profile_device(run, label, kernel):
           f"{1.0 - busy / wall_us:.3f}")
     for dev, count, key in rows[:12]:
         print(f"    {dev / 1e3:9.3f} ms {count:7d}x  {key[:90]}")
+    if kernel is None:
+        return None
     dev, count = next((d, c) for d, c, key in rows if kernel in key)
     print(f"  {kernel}: {count} launches, {dev / 1e3 / count:.4f} ms of "
           f"device time each")
     return dev / 1e3 / count
+
+
+def small_adjoint(equation, device, funcs, w0=None, **options):
+    """``evalFunctionsSens`` of ``funcs`` on the 16x8x8 wing at the seeded
+    perturbed free stream (``w0``, else made here), with the launches it
+    made on the card: (totals, solver, K1 launches, K2 launches, w0)."""
+    from adflow_torch.api.solver import ADFLOW
+    from adflow_torch.core.refstate import AeroProblem
+    from adflow_torch.meshgen.analytic import wing_omesh
+    from adflow_torch.ops import cuda_inviscid, cuda_rans
+
+    rans = equation == "RANS"
+    opts = dict(solver_options(1) if rans else euler_options(1), **options)
+    solver = ADFLOW(options=opts, mesh=wing_omesh(
+        ni=ADJ_DIMS[0], nj=ADJ_DIMS[1], nk=ADJ_DIMS[2], viscous=rans),
+        device=device)
+    ap = AeroProblem(**(M6 if rans else EULER))
+    solver.setAeroProblem(ap)
+    w0 = perturbed_state(solver) if w0 is None else w0
+    solver.setStates(w0)
+    cuda_inviscid.LAUNCHES = cuda_rans.LAUNCHES = 0
+    t0 = time.perf_counter()
+    sens = solver.evalFunctionsSens(ap, {}, funcs)
+    info = solver.adjoint_info
+    route = "" if solver.cfg.use_kernels else ", no kernels"
+    print(f"  {equation} {'x'.join(map(str, ADJ_DIMS))} on {device} "
+          f"({solver.dtype}{route}): {time.perf_counter() - t0:.3f} s, last "
+          f"adjoint {info.iters} GMRES iterations to rel "
+          f"{info.res_norm / info.b_norm:.3e}")
+    return sens, solver, cuda_rans.LAUNCHES, cuda_inviscid.LAUNCHES, w0
+
+
+def compare_totals(label, want, got, names, rtol):
+    """Totals of one function on two runs: each of ``names`` and the norm
+    of xv, relative to the first run's; returns the largest."""
+    worst = 0.0
+    for n in names:
+        a, b = want[n], got[n]
+        err = abs(b - a) / max(abs(a), 1e-300)
+        worst = max(worst, err)
+        print(f"    {label} d/d{n}: {b!r} vs {a!r}, rel {err:.3e}")
+        assert np.isfinite(b)
+    na, nb = (float(np.linalg.norm(t["xv"])) for t in (want, got))
+    err = abs(nb - na) / na
+    worst = max(worst, err)
+    entry = (np.abs(got["xv"] - want["xv"]).max()
+             / np.abs(want["xv"]).max())
+    print(f"    {label} |d/dxv|: {nb!r} vs {na!r}, rel {err:.3e}; largest "
+          f"entry difference {entry:.3e} of the largest entry (tolerance "
+          f"{rtol:g} on the others)")
+    assert np.all(np.isfinite(got["xv"]))
+    assert worst < rtol, (label, worst)
+    return worst
+
+
+def dot_identity(solver, seed, rtol):
+    """<J v, u> = <v, J^T u> in w and x through
+    computeJacobianVectorProductFwd/Bwd, seeded numpy vectors, the dot
+    products summed in f64; returns the relative difference."""
+    rng = np.random.default_rng(seed)
+    wvec, xvec = solver._wx_vecs()
+    wd = rng.standard_normal(wvec.shape)
+    xd = rng.standard_normal(xvec.shape)
+    rbar = rng.standard_normal(wvec.shape)
+    rdot = solver.computeJacobianVectorProductFwd(
+        wDot=wd, xVDot=xd, residualDeriv=True)
+    gw, gx = solver.computeJacobianVectorProductBwd(
+        resBar=rbar, wDeriv=True, xVDeriv=True)
+    lhs = float(rdot.astype(np.float64) @ rbar)
+    rhs = float(gw.astype(np.float64) @ wd + gx.astype(np.float64) @ xd)
+    err = abs(lhs - rhs) / abs(lhs)
+    print(f"  dot-product identity at {wvec.numel()} states and "
+          f"{xvec.numel()} coordinates: <J v, u> {lhs!r}, <v, J^T u> "
+          f"{rhs!r}, rel {err:.3e} (tolerance {rtol:g})")
+    assert np.isfinite(lhs) and err < rtol
+    return err
+
+
+def adjoint_parity():
+    """[15]: the small Euler adjoint through K2 and the small RANS-SA one
+    through K1 on the card, against the CPU (f64, plain), and the RANS one
+    against the card's plain route; returns the launches of each path."""
+    from adflow_torch.ops import cuda_inviscid, cuda_rans
+
+    funcs = ["cl", "cd"]
+    cpu, _, _, _, w0 = small_adjoint("euler", "cpu", funcs, **ADJ_EULER_OPTS)
+    card, solver, k1, k2, _ = small_adjoint("euler", "cuda:0", funcs, w0,
+                                            **ADJ_EULER_OPTS)
+    expected = 2 * len(funcs)
+    print(f"  K2 launches {k2} (expected {expected}: for each function one "
+          f"forward of the residual's vjp in w, built once a solve, and one "
+          f"of its vjp in x and the design variables), K1 launches {k1}")
+    assert k2 == expected and k1 == 0, (k2, k1)
+    for f in funcs:
+        compare_totals(f"card vs CPU, {f}", cpu[f"m6e_{f}"],
+                       card[f"m6e_{f}"], ("alpha", "mach"), ADJ_EULER_RTOL)
+    cuda_inviscid.LAUNCHES = 0
+    dot_identity(solver, 1, DOT_RTOL_F32)
+    assert cuda_inviscid.LAUNCHES == 2, cuda_inviscid.LAUNCHES
+
+    names = ("alpha", "mach", "reynolds", "T")
+    cpu, _, _, _, w0 = small_adjoint("RANS", "cpu", ["cd"], **ADJ_RANS_OPTS)
+    card, _, k1_rans, k2_rans, _ = small_adjoint(
+        "RANS", "cuda:0", ["cd"], w0, **ADJ_RANS_OPTS)
+    route, _, k1_route, k2_route, _ = small_adjoint(
+        "RANS", "cuda:0", ["cd"], w0, **ADJ_ROUTE_OPTS)
+    plain, _, k1_plain, k2_plain, _ = small_adjoint(
+        "RANS", "cuda:0", ["cd"], w0, useBlockettes=False, **ADJ_ROUTE_OPTS)
+    print(f"  K1 launches {k1_rans} frozen, {k1_route} unfrozen (expected 2 "
+          f"each, as K2's above), K2 {k2_rans}, {k2_route}; without the "
+          f"kernels K1 {k1_plain}, K2 {k2_plain}")
+    assert (k1_rans, k2_rans, k1_route, k2_route, k1_plain, k2_plain) == (
+        2, 0, 2, 0, 0, 0)
+    compare_totals("card vs CPU, frozen turbulence, cd", cpu["m6_cd"],
+                   card["m6_cd"], names, ADJ_RANS_RTOL)
+    compare_totals("K1 vs plain route, unfrozen, cd", plain["m6_cd"],
+                   route["m6_cd"], names, ROUTE_RTOL)
+    return k1_rans + k1_route, k2
+
+
+def full_adjoint(solver):
+    """[16]: ``evalFunctionsSens`` of cl on the main path's solved wing,
+    40 GMRES iterations; its pieces timed, the dot-product identity at
+    full width and three GMRES iterations profiled. Returns the K2
+    launches of the call."""
+    from adflow_torch.adjoint import api as adj
+    from adflow_torch.ops import cuda_inviscid, cuda_rans
+    from adflow_torch.solvers.krylov import gmres
+
+    for k, v in FULL_ADJ_OPTS.items():
+        solver.setOption(k, v)
+    ap = solver.curAP
+    cuda_inviscid.LAUNCHES = cuda_rans.LAUNCHES = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sens = solver.evalFunctionsSens(ap, {}, ["cl"])[f"{ap.name}_cl"]
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    k2, k1 = cuda_inviscid.LAUNCHES, cuda_rans.LAUNCHES
+    info = solver.adjoint_info
+    rel_res = info.res_norm / info.b_norm
+    print(f"  evalFunctionsSens(cl): {wall:.3f} s; {info.iters} GMRES "
+          f"iterations to rel {rel_res:.3e}; dcl/dalpha {sens['alpha']!r}, "
+          f"dcl/dmach {sens['mach']!r}, |dcl/dxv| "
+          f"{float(np.linalg.norm(sens['xv']))!r}")
+    print(f"  K2 launches {k2} (expected 2: the vjp in w built once for the "
+          f"solve, the vjp in x and the design variables), K1 {k1}")
+    assert k2 == 2 and k1 == 0, (k2, k1)
+    assert info.iters == FULL_ADJ_OPTS["adjointMaxIter"]
+    assert np.isfinite(rel_res) and rel_res < 1.0
+    assert all(np.isfinite(sens[k]) for k in ("alpha", "mach"))
+    assert np.all(np.isfinite(sens["xv"]))
+
+    fns, nfns = solver._adjoint_fns(), solver._newton_fns()
+    wvec, xvec = solver._wx_vecs()
+    params = solver._ap_params(ap)
+    _, vjp_w = torch.func.vjp(lambda w: fns.res(w, xvec, params), wvec)
+    gen = torch.Generator(device=wvec.device).manual_seed(3)
+    v = torch.randn(wvec.shape, generator=gen, device=wvec.device)
+    precond = adj._transposed_line_pc(nfns, wvec)
+    parts = (
+        ("transposed PC build", lambda: adj._transposed_line_pc(nfns, wvec),
+         3),
+        ("transposed PC apply", lambda: precond(v), 10),
+        ("one vjp matvec", lambda: vjp_w(v), 10),
+    )
+    for label, fn, reps in parts:
+        print(f"  {label}: {time_ms(fn, reps=reps, warmup=1):.4f} ms "
+              f"(median of {reps})")
+    dot_identity(solver, 2, DOT_RTOL_F32)
+
+    rhs = torch.func.grad(lambda w: fns.funcs(w, xvec, params)["cl"])(wvec)
+
+    def three_iterations():
+        gmres(lambda u: vjp_w(u)[0], rhs, m=3, restarts=1, tol=0.0,
+              precond=precond)
+
+    profile_device(three_iterations, "3 adjoint GMRES iterations")
+    return k2
 
 
 def kernel_times(label, fused, plain, tensors, consts, n_bytes, n_flop,
@@ -681,6 +925,7 @@ def main() -> int:
         return 1
     from adflow_torch.ops import _nvcc, cuda_inviscid, cuda_rans
 
+    t_start = time.perf_counter()
     card = card_line()
     name = torch.cuda.get_device_name(0)
     print(card)
@@ -776,7 +1021,15 @@ def main() -> int:
         cuda_inviscid.min_bytes(ni, nj, nk),
         cuda_inviscid.flop_count(ni, nj, nk), name)
     k2_times["profiled_ms"] = ank_breakdown(solver)
+
+    phase("[15] small adjoints: card against CPU, through K2 and K1")
+    k1_adj, k2_adj = adjoint_parity()
+
+    phase("[16] main path's adjoint: evalFunctionsSens of cl on the "
+          f"{'x'.join(map(str, FULL_DIMS))} Euler wing")
+    k2_full_adj = full_adjoint(solver)
     phase()
+    print(f"total wall time {time.perf_counter() - t_start:.1f} s")
 
     print(card)
     print(json.dumps({"kernels": [
@@ -784,9 +1037,10 @@ def main() -> int:
          "source": "adflow_torch/csrc/rans_residual.cu",
          "replaces": "adflow_tpu/ops/pallas_rans.py:58",
          "design": "one pass, i-march",
-         "launches": k1_rk + k1_ank,
+         "launches": k1_rk + k1_ank + k1_adj,
          "launches_by_path": {"rk_rans_wing_256x64x64": k1_rk,
-                              "ank_rans_wing_64x24x16": k1_ank},
+                              "ank_rans_wing_64x24x16": k1_ank,
+                              "adjoint_rans_wing_16x8x8": k1_adj},
          "max_abs_err": max_abs, "max_rel_err": flux_rel,
          "max_rel_err_of_residual": max_rel, **k1_times,
          "library_ms": None},
@@ -794,8 +1048,10 @@ def main() -> int:
          "source": "adflow_torch/csrc/inviscid_residual.cu",
          "replaces": "adflow_tpu/ops/pallas_residual.py:45",
          "design": "one pass, i-march",
-         "launches": k2_ank,
-         "launches_by_path": {"ank_euler_wing_256x64x64": k2_ank},
+         "launches": k2_ank + k2_adj + k2_full_adj,
+         "launches_by_path": {"ank_euler_wing_256x64x64": k2_ank,
+                              "adjoint_euler_wing_16x8x8": k2_adj,
+                              "adjoint_euler_wing_256x64x64": k2_full_adj},
          "max_abs_err": k2_abs, "max_rel_err": k2_flux_rel, **k2_times,
          "library_ms": None},
     ]}))

@@ -10,12 +10,15 @@ backward and jvp through the plain version, and the kernel's tile plan
 (``k2_tile_plan``: every interior cell in exactly one block's tile and
 segment, the segment at the main path's size, the shared bytes, the copy
 width against the row alignment of the 20-byte ``w5`` and 4-byte ``p``
-cells). On a card (marker ``cuda``, skipped without one): the CUDA kernel
-against the plain version at 2e-5 per channel on the test_pallas.py wing
-and on blocks whose sizes are multiples of no tile size, with segments
+cells), and the slab operands a block past the kernel's 32-bit offsets
+is launched on. On a card (marker ``cuda``, skipped without one): the CUDA
+kernel against the plain version at 2e-5 per channel on the
+test_pallas.py wing and on blocks whose sizes are multiples of no tile
+size, with segments
 that do not divide ni and one longer than the block (with 16-byte copies);
-two launches bitwise equal; and ``block_residual`` launching it for an
-Euler block.
+two launches bitwise equal; a block covered in slabs of i-planes, as
+one past the kernel's 32-bit offsets is, bitwise equal to one launch; and
+``block_residual`` launching it for an Euler block.
 
 JAX is imported inside the tests that run it, so the card tests run on a
 machine without JAX:
@@ -288,6 +291,25 @@ def test_tile_plan_copy_width_divides_row_alignment(dims):
     assert (width == 16) == (dims == (256, 64, 64))
 
 
+def test_slab_operands_cover_the_block(monkeypatch):
+    """With the offset limit lowered so that (37, 19, 33) takes three slabs,
+    the plain version on each slab's operands gives that slab's planes of
+    the whole block's result: the slices K2 launches on past its 32-bit
+    offsets."""
+    tensors, consts = cuda_inviscid.sample_operands((37, 19, 33), "cpu")
+    monkeypatch.setattr(cuda_inviscid, "W5_MAX_FLOATS",
+                        5 * 23 * 37 * (13 + 4))
+    slabs = cuda_inviscid.k2_slabs(37, 19, 33)
+    assert slabs == [(0, 13), (13, 13), (26, 11)]
+    whole = cuda_inviscid.inviscid_residual_reference(*tensors, *consts)
+    parts = [cuda_inviscid.inviscid_residual_reference(
+        *cuda_inviscid.slab_operands(tensors, i0, n), *consts)
+        for i0, n in slabs]
+    assert all(t.is_contiguous() for i0, n in slabs
+               for t in cuda_inviscid.slab_operands(tensors, i0, n))
+    assert torch.equal(torch.cat(parts), whole)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dims", [(16, 8, 8), (15, 7, 5), (37, 19, 33),
                                   (9, 8, 16)])
@@ -326,6 +348,23 @@ def test_kernel_launches_bitwise_equal_on_card(cuda_device):
     b = cuda_inviscid.fused_inviscid_residual(*tensors, *consts)
     torch.cuda.synchronize()
     assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_kernel_slabs_match_one_launch_on_card(cuda_device, monkeypatch):
+    """A block past the 32-bit offsets (the limit lowered here, so that
+    (37, 19, 33) takes three slabs) is one launch a slab, bitwise equal to
+    the one launch that covers it whole."""
+    tensors, consts = cuda_inviscid.sample_operands((37, 19, 33),
+                                                    cuda_device)
+    whole = cuda_inviscid.fused_inviscid_residual(*tensors, *consts)
+    monkeypatch.setattr(cuda_inviscid, "W5_MAX_FLOATS",
+                        5 * 23 * 37 * (13 + 4))
+    before = cuda_inviscid.LAUNCHES
+    got = cuda_inviscid.fused_inviscid_residual(*tensors, *consts)
+    torch.cuda.synchronize()
+    assert cuda_inviscid.LAUNCHES == before + 3
+    assert torch.equal(got, whole)
 
 
 @pytest.mark.cuda

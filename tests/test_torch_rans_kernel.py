@@ -93,7 +93,8 @@ def test_autograd_function_derivatives(monkeypatch):
         lambda ts, *c: cuda_rans.rans_residual_reference(*ts, *c))
 
     def fused(w):
-        return cuda_rans._FusedRans.apply(w, *t[1:], consts)
+        return cuda_rans._FusedRans.apply(w, *t[1:], consts[3], consts[4],
+                                          consts[:3] + consts[5:])
 
     def plain(w):
         return cuda_rans.rans_residual_reference(w, *t[1:], *consts)
@@ -109,6 +110,52 @@ def test_autograd_function_derivatives(monkeypatch):
     (vjp_p,) = torch.func.vjp(plain, t[0])[1](cot)
     torch.testing.assert_close(vjp_f, vjp_p, rtol=1e-12, atol=0)
     assert float(torch.abs(vjp_p).max()) > 0.0
+
+
+def _flow_constant_derivatives(fused, tensors, consts, seed=4):
+    """d(out)/d mu_inf and d(out)/d t_inf_dim, as jvps of unit tangents and
+    one vjp each, through ``fused`` (the signature of
+    ``fused_rans_residual``) with the two constants as 0-d tensors and
+    through the plain version: pairs (fused, plain)."""
+    w, rest = tensors[0], tensors[1:]
+    dev = w.device
+    c = [torch.tensor(float(v), dtype=torch.float64, device=dev)
+         for v in consts[3:5]]
+    out = []
+    for fn in (fused, cuda_rans.rans_residual_reference):
+        def f(mu, tinf, fn=fn):
+            return fn(w, *rest, *consts[:3], mu, tinf, *consts[5:])
+
+        jv = [torch.func.jvp(f, tuple(c), tuple(
+            torch.ones_like(a) if i == j else torch.zeros_like(a)
+            for j, a in enumerate(c)))[1] for i in range(2)]
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        cot = torch.randn(jv[0].shape, generator=gen, device=dev,
+                          dtype=jv[0].dtype)
+        out.append((jv, torch.func.vjp(f, *c)[1](cot)))
+    return out
+
+
+def test_flow_constant_derivatives_through_function(monkeypatch):
+    """With ``mu_inf`` and ``t_inf_dim`` as 0-d tensors (the adjoint's
+    traced reference state), the autograd.Function passes their
+    derivatives through, as the plain version has them; a float() of
+    them would give zero. The launch is replaced by the plain version so
+    this runs on the CPU."""
+    tensors, consts = cuda_rans.sample_operands((6, 4, 4), "cpu")
+    tensors = [a.double() for a in tensors]
+    monkeypatch.setattr(
+        cuda_rans, "_launch",
+        lambda ts, *c: cuda_rans.rans_residual_reference(*ts, *c))
+
+    def fused(*a):
+        return cuda_rans._FusedRans.apply(*a[:10], a[13], a[14],
+                                          a[10:13] + a[15:])
+
+    (jf, vf), (jp, vp) = _flow_constant_derivatives(fused, tensors, consts)
+    for a, b in zip(jf + list(vf), jp + list(vp)):
+        assert float(b.abs().max()) > 0.0
+        torch.testing.assert_close(a, b, rtol=1e-12, atol=0)
 
 
 PLAN_DIMS = [(24, 12, 8), (23, 11, 7), (2, 3, 5), (256, 64, 64)]
@@ -219,3 +266,19 @@ def test_kernel_refuses_float64_on_card(cuda_device):
     t = [a.double() for a in tensors]
     with pytest.raises(ValueError, match="float32"):
         cuda_rans.fused_rans_residual(*t, *consts)
+
+
+@pytest.mark.cuda
+def test_flow_constant_derivatives_on_card(cuda_device):
+    """Through the kernel's autograd.Function, d(out)/d mu_inf and
+    d(out)/d t_inf_dim (0-d tensors) equal the plain version's."""
+    tensors, consts = cuda_rans.sample_operands((24, 12, 8), cuda_device)
+    before = cuda_rans.LAUNCHES
+    (jf, vf), (jp, vp) = _flow_constant_derivatives(
+        cuda_rans.fused_rans_residual, tensors, consts)
+    assert cuda_rans.LAUNCHES > before
+    for a, b in zip(jf, jp):
+        rel = float((a - b).abs().max() / b.abs().max())
+        assert rel < 1e-6, rel
+    for a, b in zip(vf, vp):
+        assert abs(float(a) - float(b)) <= 1e-6 * abs(float(b))

@@ -9,6 +9,7 @@ configuration (64x24x16) to 1e-12, and free-stream preservation below
 """
 
 import dataclasses
+import types
 
 import jax
 import jax.numpy as jnp
@@ -30,6 +31,7 @@ from adflow_torch.geom.walldist import compute_wall_distances
 from adflow_torch.interop import (
     metrics_from_numpy, refstate_from_dict, state_from_numpy)
 from adflow_torch.meshgen.analytic import cube_mesh, wing_omesh
+from adflow_torch.ops import cuda_inviscid
 from adflow_torch.ops.cuda_rans import rans_residual_reference
 from adflow_torch.physics import residual as torch_res
 
@@ -161,3 +163,34 @@ def test_kernel_routing_on_cpu(dtype, use_kernels, expect):
     m = metrics_from_numpy(*(np.zeros(1),) * 5)
     extras = {"walldist": torch.zeros(1)}
     assert torch_res._kernel_applies(w, m, cfg, extras, (w,) * 3) is expect
+
+
+@pytest.mark.parametrize("dims,expect", [
+    ((256, 64, 64), 1),                # the main path's wing
+    ((1020, 1020, 405), 1),            # 5 x 1024 x 1024 x 409 < 2^31 - 1
+    ((1020, 1020, 406), 2),            # one plane more passes 2^31 - 1
+    ((4, 20000, 20000), None),         # one padded plane alone passes it
+])
+def test_inviscid_kernel_routing_respects_32bit_offsets(dims, expect):
+    """K2's launch refuses a padded w5 of more than 2^31 - 1 floats (its
+    32-bit offsets), so a larger block on the card still routes to K2, which
+    covers it in slabs of i-planes that each fit, one launch each; a block
+    whose single plane is past the limit raises. A stand-in CUDA tensor: no
+    such array is allocated."""
+    cfg = torch_res.ProblemConfig(**CFG, use_kernels=True)
+    w = types.SimpleNamespace(dtype=torch.float32, is_cuda=True,
+                              shape=tuple(n + 4 for n in dims) + (5,))
+    m = metrics_from_numpy(*(np.zeros(1),) * 5)
+    assert torch_res._inviscid_kernel_applies(w, m, cfg, (None,) * 3)
+    ni, nj, nk = dims
+    if expect is None:
+        with pytest.raises(ValueError, match="32-bit offsets"):
+            cuda_inviscid.k2_slabs(*dims)
+        return
+    slabs = cuda_inviscid.k2_slabs(*dims)
+    assert len(slabs) == expect
+    assert [i0 for i0, _ in slabs] == list(
+        np.cumsum([0] + [n for _, n in slabs[:-1]]))
+    assert sum(n for _, n in slabs) == ni
+    assert all(5 * (n + 4) * (nj + 4) * (nk + 4) <= 2**31 - 1
+               for _, n in slabs)

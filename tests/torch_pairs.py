@@ -123,3 +123,151 @@ def check_ank_step(pair, variant, options):
     # the step moved the state and its linear solve did work
     assert rel(w0, res.w.numpy()) > 1e-6 and res.stats[4] >= 1
     return res
+
+
+# -- the adjoint of both packages --------------------------------------------
+
+# psi and the evalFunctionsSens totals; the residual vjp and the function
+# gradients (f64, the same operator, PC and Krylov iterations)
+SENS_TOL = 1e-9
+VJP_TOL = 1e-10
+# the fixed-iteration RANS plate adjoint: 20 GMRES iterations in one cycle,
+# a tolerance small enough that neither package stops early
+FIXED_20 = {"adjointSubspaceSize": 20, "adjointMaxIter": 20,
+            "adjointL2Convergence": 1e-14}
+
+
+def adjoint_pair(case, **options):
+    """Both packages' solvers with the case's seeded perturbed state set."""
+    js, ts = solvers(case, **options)
+    w0 = perturbed(np.asarray(js._wx_vecs()[0]), ts._newton_packer().nw)
+    js.setStates(w0)
+    ts.setStates(w0)
+    return js, ts
+
+
+def jax_params(js):
+    """The JAX solver's design variables as numpy."""
+    return {k: np.asarray(v) for k, v in js._ap_params(js.curAP).items()}
+
+
+def sens_pair(case, funcs, **options):
+    """Both packages' evalFunctionsSens of ``funcs`` at the perturbed
+    state: (JAX solver, port solver, JAX totals, port totals)."""
+    js, ts = adjoint_pair(case, **options)
+    sj = js.evalFunctionsSens(js.curAP, {}, funcs)
+    st = ts.evalFunctionsSens(ts.curAP, {}, funcs)
+    return js, ts, sj, st
+
+
+def jitted_sens_pair(case, func, **options):
+    """As ``sens_pair`` for one function, with the JAX totals computed as
+    the JAX package's evalFunctionsSens computes them (its
+    ``build_adjoint_fns`` and ``solve_adjoint_system``, then dI/d* =
+    dI/d*|direct - psi^T dR/d*), under one ``jax.jit``: its eager
+    evalFunctionsSens compiles op by op and takes minutes on the RANS plate
+    (test_converged_rans_adjoint_matches_jax), the jitted reference about
+    one. The JAX solver's psi cache and ``adjointFailed`` are set
+    as its evalFunctionsSens sets them."""
+    import jax
+
+    from adflow_tpu.adjoint.api import solve_adjoint_system
+    from adflow_tpu.core.refstate import R_GAS
+
+    js, ts = adjoint_pair(case, **options)
+    fns = js._adjoint_fns()
+    js._newton_fns()
+    opt = js.options
+    sub = int(opt["adjointSubspaceSize"])
+
+    @jax.jit
+    def totals(wvec, xvec, params):
+        dIdw = jax.grad(lambda w: fns.funcs(w, xvec, params)[func])(wvec)
+        sol = solve_adjoint_system(
+            fns, js, wvec, xvec, params, dIdw,
+            tol=float(opt["adjointL2Convergence"]),
+            abs_tol=float(opt["adjointL2ConvergenceRel"]), subspace=sub,
+            restarts=max(1, int(opt["adjointMaxIter"]) // sub))
+        gI_x, gI_p = jax.grad(lambda x, p: fns.funcs(wvec, x, p)[func],
+                              argnums=(0, 1))(xvec, params)
+        gR_x, gR_p = jax.vjp(lambda x, p: fns.res(wvec, x, p), xvec,
+                             params)[1](sol.x)
+        return sol, gI_x - gR_x, {k: gI_p[k] - gR_p[k] for k in params}
+
+    sol, dxv, dp = totals(*js._wx_vecs(), js._ap_params(js.curAP))
+    sj = {k: float(v) for k, v in dp.items() if k != "xref"}
+    sj.update(xref=np.asarray(dp["xref"]), xv=np.asarray(dxv),
+              rho=R_GAS * js.curAP.T * sj["P"])
+    js._psi_cache = {(js.curAP.name, func): sol.x}
+    js.adjointFailed = not bool(sol.converged)
+    st = ts.evalFunctionsSens(ts.curAP, {}, [func])
+    return js, ts, {f"{js.curAP.name}_{func}": sj}, st
+
+
+def check_sens(pair, func, converged):
+    """psi and every total of ``func`` agree to SENS_TOL; both adjoint
+    solves converged, or both did not."""
+    js, ts, sj, st = pair
+    key = (ts.curAP.name, func)
+    assert rel(js._psi_cache[key], ts._psi_cache[key].numpy()) < SENS_TOL
+    assert js.adjointFailed == ts.adjointFailed == (not converged)
+    want, got = sj[f"{ts.curAP.name}_{func}"], st[f"{ts.curAP.name}_{func}"]
+    assert set(want) == set(got)
+    for k in want:
+        assert np.shape(want[k]) == np.shape(got[k]), k
+        assert rel(want[k], got[k]) < SENS_TOL, (k, want[k], got[k])
+    return want, got
+
+
+def _maybe_jit(fn, jit):
+    import jax
+    return jax.jit(fn) if jit else fn
+
+
+def check_residual_vjp(js, ts, seed=0, jit=False):
+    """The residual's vjp with respect to w, x and every design variable,
+    from one seeded cotangent. ``jit``: the JAX side under ``jax.jit``,
+    which compiles faster than its first eager call."""
+    import jax
+
+    from adflow_torch.interop import params_from_numpy
+
+    jf, tf = js._adjoint_fns(), ts._adjoint_fns()
+    wvec, xvec = (np.asarray(v) for v in js._wx_vecs())
+    pj = jax_params(js)
+    cot = np.random.default_rng(seed).standard_normal(wvec.shape)
+    want = _maybe_jit(lambda w, x, p, c: jax.vjp(jf.res, w, x, p)[1](c),
+                      jit)(jnp.asarray(wvec), jnp.asarray(xvec), pj,
+                           jnp.asarray(cot))
+    got = torch.func.vjp(tf.res, torch.tensor(wvec), torch.tensor(xvec),
+                         params_from_numpy(pj))[1](torch.tensor(cot))
+    assert rel(want[0], got[0].numpy()) < VJP_TOL
+    assert rel(want[1], got[1].numpy()) < VJP_TOL
+    assert set(want[2]) == set(got[2])
+    for k in want[2]:
+        assert rel(want[2][k], got[2][k].numpy()) < VJP_TOL, k
+    return want
+
+
+def check_function_gradients(js, ts, funcs, jit=False):
+    """The gradients of each function with respect to w, x and every
+    design variable (``jit`` as in ``check_residual_vjp``)."""
+    import jax
+
+    from adflow_torch.interop import params_from_numpy
+
+    jf, tf = js._adjoint_fns(), ts._adjoint_fns()
+    wvec, xvec = (np.asarray(v) for v in js._wx_vecs())
+    pj = jax_params(js)
+    for name in funcs:
+        want = _maybe_jit(jax.grad(lambda w, x, p: jf.funcs(w, x, p)[name],
+                                   argnums=(0, 1, 2)), jit)(
+            jnp.asarray(wvec), jnp.asarray(xvec), pj)
+        got = torch.func.grad(lambda w, x, p: tf.funcs(w, x, p)[name],
+                              argnums=(0, 1, 2))(
+            torch.tensor(wvec), torch.tensor(xvec), params_from_numpy(pj))
+        assert float(np.abs(want[0]).max()) > 0.0
+        assert rel(want[0], got[0].numpy()) < VJP_TOL, name
+        assert rel(want[1], got[1].numpy()) < VJP_TOL, name
+        for k in want[2]:
+            assert rel(want[2][k], got[2][k].numpy()) < VJP_TOL, (name, k)
