@@ -30,8 +30,8 @@ from adflow_torch.options import Options
 from adflow_torch.physics.residual import (
     MeshTopology, ProblemConfig, build_topology, fill_halos, residual_list)
 from adflow_torch.physics.surface import (
-    FLOW_THROUGH_BCS, build_wall_patches, cost_functions, integrate_forces,
-    wall_sensors)
+    FLOW_THROUGH_BCS, build_wall_patches, cost_functions, flow_through,
+    integrate_forces, wall_sensors)
 from adflow_torch.solvers import steady
 from adflow_torch.solvers.smoothers import residual_norms
 from adflow_torch.utils.dtypes import resolve_dtype
@@ -67,6 +67,9 @@ class _IterMonitor:
 
     def _functions(self, w_list):
         s = self.solver
+        # the f64 continuation of precision='mixed' reports f64 states: the
+        # functions are those of the solver's own dtype and metrics
+        w_list = [w.to(s.dtype) for w in w_list]
         wf = fill_halos(w_list, s.metrics_list, s.topo, s.ref, s.winf)
         f = integrate_forces(wf, s.x_list, s.metrics_list, s.wall_patches,
                              s.ref, s.cfg, extras_list=s.extras_list)
@@ -201,8 +204,6 @@ class ADFLOW:
             raise _todo("QCR and rotation-SA", "9")
         if opt["turbulenceModel"].lower() != "sa":
             raise _todo(f"turbulence model {opt['turbulenceModel']!r}", "9")
-        if opt["discretization"].lower() != "central plus scalar dissipation":
-            raise _todo(f"discretization {opt['discretization']!r}", "9")
         if str(opt["turbulenceOrder"]).replace(" ", "").lower() != "firstorder":
             raise _todo("second-order turbulence advection", "9")
         if opt["smoother"].lower().startswith("dadi"):
@@ -344,7 +345,8 @@ class ADFLOW:
             self.w_list, info = solve_newton_driver(
                 self.w_list, self.metrics_list, self.topo, self.cfg,
                 self.ref, self.winf, opt, extras_list=self.extras_list,
-                monitor=monitor, deadline=deadline)
+                monitor=monitor, deadline=deadline,
+                mixed_data=self._mixed_data())
         elif str(opt["MGCycle"]).lower() not in ("sg", "none", ""):
             raise _todo(f"multigrid cycle {opt['MGCycle']!r}", "10")
         else:
@@ -373,9 +375,31 @@ class ADFLOW:
                 or (use_nk and str(opt["NKGlobalPreconditioner"]).lower()
                     == "multigrid")):
             raise _todo("the multigrid (AMG) global preconditioner", "10")
-        if use_nk and str(opt["precision"]).lower() == "mixed":
-            raise _todo("the f64 Newton continuation of precision='mixed'",
-                        "6")
+
+    def _mixed_data(self):
+        """f64 companions for the f64 continuation of precision='mixed'
+        (solvers/newton.py): metrics recomputed from the original node
+        coordinates in f64, since upcast f32 metrics would put a ~1e-7
+        flux-closure floor on the f64 residual itself, and f64 wall
+        distances for RANS (without the wallDistCutoff, as in the JAX
+        package). Both cached; on the solver's device."""
+        if self.options["precision"].lower() != "mixed":
+            return None
+        if getattr(self, "_mixed_cache", None) is None:
+            x64 = [torch.as_tensor(b.x, dtype=torch.float64,
+                                   device=self.device)
+                   for b in self.mesh.blocks]
+            metrics64 = compute_metrics_conn(self.mesh.blocks, x64)
+            extras64 = None
+            if self.cfg.rans:
+                from adflow_torch.geom.walldist import compute_wall_distances
+                extras64 = [{"walldist": d}
+                            for d in compute_wall_distances(self.mesh, x64)]
+            self._mixed_cache = (metrics64, extras64)
+        metrics64, extras64 = self._mixed_cache
+        winf64 = torch.as_tensor(self.ref.winf(), dtype=torch.float64,
+                                 device=self.device)
+        return metrics64, winf64, extras64
 
     def _fmg_start(self, opt):
         """Full-multigrid start (reference: solvers.F90:63). With the
@@ -406,9 +430,6 @@ class ADFLOW:
         """Reference: pyADflow.evalFunctions:1536 — fills
         funcs['<ap.name>_<func>']."""
         self.setAeroProblem(ap)
-        if self.flow_patches:
-            raise _todo("flow-through integration (inflow/outflow "
-                        "families)", "7")
         if evalFuncs is None:
             evalFuncs = ap.evalFuncs
         wf = self._filled_w()
@@ -417,6 +438,9 @@ class ADFLOW:
                              extras_list=self.extras_list)
         f.update(wall_sensors(wf, self.metrics_list, self.wall_patches,
                               self.ref, x_list=self.x_list))
+        if self.flow_patches:
+            f.update(flow_through(wf, self.metrics_list, self.flow_patches,
+                                  self.ref))
         all_funcs = cost_functions(f, self.ref)
         for name in evalFuncs:
             key = name.lower()

@@ -7,10 +7,15 @@ halos where they touch block edges so corner halos get filled by sequential
 application. ``apply_bcs`` copies the padded state once and writes the ghost
 layers of the copy, so the caller's tensor is never modified.
 
-Ported branches: FARFIELD, SYMMETRY(_POLAR), EULER_WALL, NS_WALL_ADIABATIC,
-NS_WALL_ISOTHERMAL and SUBSONIC_OUTFLOW, on static meshes without wall
-functions. The remaining branches of the JAX package's ``_ghost_state`` are
-ROADMAP.md queue 1 item 9 and raise when a mesh uses them.
+Every branch of the JAX package's ``_ghost_state`` is ported, on static
+meshes without wall functions (ROADMAP.md queue 1 item 9); overset faces
+are item 11. Where the JAX package takes ``float()`` of the free stream
+(the mass-flow inflow, the prescribed-state inflow with data and
+DOMAIN_INTERFACE_RHO), it cannot trace them: under ``jax.jit`` or a
+derivative in the flow conditions ``float()`` of the traced free stream
+raises. The port keeps the free stream a tensor there: a ``float()`` under
+``torch.func`` would drop its derivative silently, and a host copy would
+stall the card at every fill. The values are the same.
 """
 
 from __future__ import annotations
@@ -30,11 +35,6 @@ H = 2  # halo depth
 # Width (fraction of local sound speed) of the smooth inflow/outflow blend in
 # the far-field BC (same value as the JAX package).
 FARFIELD_BLEND_WIDTH = 0.01
-
-SUPPORTED_BCS = (BCType.FARFIELD, BCType.SYMMETRY, BCType.SYMMETRY_POLAR,
-                 BCType.EULER_WALL, BCType.NS_WALL_ADIABATIC,
-                 BCType.NS_WALL_ISOTHERMAL, BCType.SUBSONIC_OUTFLOW,
-                 BCType.B2B_MATCH)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -69,10 +69,10 @@ def build_bc_ops(block: Block) -> List[BCOp]:
     dims = (ni, nj, nk)
     ops: List[BCOp] = []
     for sf in block.bcs:
-        if sf.bc not in SUPPORTED_BCS:
+        if sf.bc is BCType.OVERSET:
             raise NotImplementedError(
-                f"BC {sf.bc.value!r} is not ported yet (ROADMAP.md queue 1 "
-                f"item 9: the remaining BC branches of _ghost_state)")
+                "overset faces are not ported yet (ROADMAP.md queue 1 "
+                "item 11)")
         face = sf.face
         ax = face.axis
         t1, t2 = _tangential_axes(ax)
@@ -162,14 +162,40 @@ def _reflect_momentum(wi, nhat):
 
 def _data_field(op: BCOp, key: str, default, like):
     """Prescribed BC datum: scalar or per-subface (T1, T2) array, edge-padded
-    to the op's extended ghost extent."""
+    to the op's extended ghost extent; a flow direction ``dir`` may be one
+    3-vector."""
     val = None if op.data is None else op.data.get(key)
     if val is None:
         return default
     if np.ndim(val) == 0:
         return float(val)
     arr = torch.as_tensor(np.asarray(val), dtype=like.dtype, device=like.device)
+    if arr.dim() == 1 and key == "dir":
+        return arr
     return _edge_pad2(arr, op.pad)
+
+
+def _full(x, like):
+    """A scalar, a 0-d tensor or a (T1, T2) array broadcast to the shape of
+    ``like`` (``jnp.broadcast_to(jnp.asarray(x), like.shape)``)."""
+    return torch.broadcast_to(
+        torch.as_tensor(x, dtype=like.dtype, device=like.device), like.shape)
+
+
+def _inflow_direction(op: BCOp, nhat, like):
+    """The prescribed inflow direction, else the inward normal."""
+    dvec = _data_field(op, "dir", None, like)
+    return -nhat if dvec is None else torch.broadcast_to(dvec, nhat.shape)
+
+
+def _with_turb(out, wi, turb):
+    """Append the turbulence channels ``turb`` (a per-cell tensor, or the
+    free stream's) when the state carries any."""
+    if wi.shape[-1] <= ITURB:
+        return out
+    if turb.dim() == 1:
+        turb = turb.expand(out.shape[:-1] + (wi.shape[-1] - ITURB,))
+    return torch.cat([out, turb], dim=-1)
 
 
 def _ghost_state(op: BCOp, wi, nhat, ref: ReferenceState, winf):
@@ -210,7 +236,11 @@ def _ghost_state(op: BCOp, wi, nhat, ref: ReferenceState, winf):
     if bc is BCType.FARFIELD:
         return _farfield_state(wi, nhat, winf, gamma)
 
-    if bc is BCType.SUBSONIC_OUTFLOW:
+    if bc in (BCType.SUBSONIC_OUTFLOW, BCType.MASS_BLEED_OUTFLOW,
+              BCType.DOMAIN_INTERFACE_P):
+        # prescribed static pressure, scalar or per-subface profile (bleed
+        # outflow shares this handler, BCRoutines.F90:163-168;
+        # DomainInterfaceP feeds an external p field, BCData.F90:2359)
         p_spec = _data_field(op, "P", ref.p_inf, wi)
         pi = pressure(wi)
         pg = torch.maximum(2.0 * p_spec - pi,
@@ -222,9 +252,102 @@ def _ghost_state(op: BCOp, wi, nhat, ref: ReferenceState, winf):
         rhoe = pg / (gamma - 1.0) + 0.5 * rho_g * torch.sum(v * v, dim=-1)
         out = torch.cat(
             [rho_g[..., None], rho_g[..., None] * v, rhoe[..., None]], dim=-1)
-        if wi.shape[-1] > ITURB:
-            out = torch.cat([out, wi[..., ITURB:]], dim=-1)
-        return out
+        return _with_turb(out, wi, wi[..., ITURB:])
+
+    if bc is BCType.DOMAIN_INTERFACE_RHOUVW:
+        # prescribed density and velocity components (mass flow fixed,
+        # BCData.F90:2381 domainInterfaceRhoUVW); static p from the interior
+        pi = pressure(wi)
+        v_f = winf[IMX:IMZ + 1] / winf[IRHO]
+        rho_g = _full(_data_field(op, "rho", winf[IRHO], wi), pi)
+        vx, vy, vz = (_full(_data_field(op, k, v_f[i], wi), pi)
+                      for i, k in enumerate(("vx", "vy", "vz")))
+        rhoe = pi / (gamma - 1.0) + 0.5 * rho_g * (vx**2 + vy**2 + vz**2)
+        out = torch.stack([rho_g, rho_g * vx, rho_g * vy, rho_g * vz, rhoe],
+                          dim=-1)
+        return _with_turb(out, wi, winf[ITURB:])
+
+    if bc in (BCType.SUBSONIC_INFLOW, BCType.MASS_BLEED_INFLOW,
+              BCType.DOMAIN_INTERFACE_TOTAL):
+        # DomainInterfaceTotal (BCData.F90:2414) prescribes Pt/Tt/flow
+        # direction: the total-conditions branch below
+        if (bc is BCType.MASS_BLEED_INFLOW
+                or (bc is not BCType.DOMAIN_INTERFACE_TOTAL
+                    and op.data is not None
+                    and op.data.get("rho") is not None)):
+            # mass-flow treatment (BCRoutines.F90:987): prescribed density
+            # and velocity (magnitude along the inward normal or an explicit
+            # direction); static pressure from the interior
+            rho_spec = _data_field(op, "rho", winf[IRHO], wi)
+            vmag = _data_field(op, "vmag", ref.mach, wi)
+            d_in = _inflow_direction(op, nhat, wi)
+            pi = pressure(wi)
+            rho_g = _full(rho_spec, pi)
+            vg = (vmag[..., None] * d_in if torch.is_tensor(vmag)
+                  else vmag * d_in)
+            rhoe = pi / (gamma - 1.0) + 0.5 * rho_g * torch.sum(
+                vg * vg, dim=-1)
+            out = torch.cat([rho_g[..., None], rho_g[..., None] * vg,
+                             rhoe[..., None]], dim=-1)
+            return _with_turb(out, wi, winf[ITURB:])
+        # prescribed total state and direction; static p from the interior
+        # (BCRoutines.F90:804 bcSubsonicInflow, total-conditions branch)
+        mach = ref.mach
+        pt_def = ref.p_inf * (1 + 0.5 * (gamma - 1) * mach ** 2) ** (
+            gamma / (gamma - 1))
+        tt_def = 1.0 + 0.5 * (gamma - 1) * mach ** 2
+        pt = _data_field(op, "Pt", pt_def, wi)
+        tt = _data_field(op, "Tt", tt_def, wi)
+        d_in = _inflow_direction(op, nhat, wi)
+        pi = pressure(wi)
+        pi = torch.minimum(pi, _full(pt * 0.9999, pi))
+        tg = tt * (pi / pt) ** ((gamma - 1.0) / gamma)
+        v2 = torch.maximum(2.0 * (tt - tg) / (gamma - 1.0), _full(1e-30, pi))
+        vmag = torch.sqrt(v2)   # floor > 0: sqrt'(0) = inf would NaN jvps
+        rho_g = gamma * pi / tg
+        vg = vmag[..., None] * d_in
+        rhoe = pi / (gamma - 1.0) + 0.5 * rho_g * v2
+        out = torch.cat([rho_g[..., None], rho_g[..., None] * vg,
+                         rhoe[..., None]], dim=-1)
+        return _with_turb(out, wi, winf[ITURB:])
+
+    if bc in (BCType.SUPERSONIC_INFLOW, BCType.DOMAIN_INTERFACE_ALL):
+        # prescribed full state (BCRoutines.F90:1411 bcSupersonicInflow;
+        # DomainInterfaceAll shares it, BCData.F90:2282): per-subface
+        # (rho, vx, vy, vz, p) arrays or scalars; the free stream when
+        # nothing is prescribed
+        if op.data is None or not any(
+                op.data.get(k) is not None
+                for k in ("rho", "vx", "vy", "vz", "P")):
+            return winf.expand(wi.shape)
+        rho_f = winf[IRHO]
+        v_f = winf[IMX:IMZ + 1] / rho_f
+        p_f = (GAMMA - 1.0) * (winf[IRHOE] - 0.5 * torch.sum(
+            winf[IMX:IMZ + 1] ** 2) / rho_f)
+        like = wi[..., IRHO]
+        rho = _full(_data_field(op, "rho", rho_f, wi), like)
+        vx, vy, vz = (_full(_data_field(op, k, v_f[i], wi), like)
+                      for i, k in enumerate(("vx", "vy", "vz")))
+        p = _full(_data_field(op, "P", p_f, wi), like)
+        rhoe = p / (gamma - 1.0) + 0.5 * rho * (vx**2 + vy**2 + vz**2)
+        out = torch.stack([rho, rho * vx, rho * vy, rho * vz, rhoe], dim=-1)
+        return _with_turb(out, wi, winf[ITURB:])
+
+    if bc is BCType.DOMAIN_INTERFACE_RHO:
+        # prescribed density only; velocity and pressure from the interior
+        # (BCData.F90:2448 domainInterfaceRho)
+        pi = pressure(wi)
+        rho_g = _full(_data_field(op, "rho", winf[IRHO], wi), pi)
+        v = wi[..., IMX:IMZ + 1] / wi[..., IRHO:IRHO + 1]
+        rhoe = pi / (gamma - 1.0) + 0.5 * rho_g * torch.sum(v * v, dim=-1)
+        out = torch.cat([rho_g[..., None], rho_g[..., None] * v,
+                         rhoe[..., None]], dim=-1)
+        return _with_turb(out, wi, wi[..., ITURB:])
+
+    if bc in (BCType.SUPERSONIC_OUTFLOW, BCType.EXTRAPOLATE):
+        # zeroth-order extrapolation (the reference offers linear,
+        # BCRoutines.F90:1479 bcExtrap)
+        return wi
 
     raise NotImplementedError(f"BC {bc} not implemented")
 

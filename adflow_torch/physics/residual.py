@@ -4,7 +4,8 @@ adflow_tpu/physics/residual.py).
 Pipeline per evaluation:
   physical BCs -> b2b halo exchange -> physical BCs (corner fix-up)
   -> per block: the fused RANS-SA kernel (ops/cuda_rans.py) on CUDA f32,
-     else inviscid central+JST fluxes (the inviscid kernel,
+     else the inviscid fluxes: upwind or central + matrix dissipation
+     (physics/upwind.py, plain), else central + JST (the inviscid kernel,
      ops/cuda_inviscid.py, on CUDA f32) [-> viscous -> turbulence] -> R.
 """
 
@@ -197,16 +198,22 @@ def block_residual(w, metrics: BlockMetrics, cfg: ProblemConfig,
             cfg.vis2, cfg.vis4, cfg.diss_exponent,
             ref.mu_inf, ref.t_inf_dim, cfg.use_ft2, cfg.turb_scales[0])
 
-    if (not cfg.discretization.startswith("central")
-            or "matrix" in cfg.discretization):
-        raise NotImplementedError(
-            f"discretization {cfg.discretization!r} (ROADMAP.md queue 1 "
-            f"item 9)")
     if extras and ("act_src" in extras or "act_src_momentum" in extras):
         raise NotImplementedError("actuator sources (ROADMAP.md queue 1 "
                                   "item 9)")
     p = pressure(w)
-    if _inviscid_kernel_applies(w, metrics, cfg, por):
+    if cfg.discretization.startswith("upwind"):
+        from adflow_torch.physics.upwind import upwind_residual
+        r = upwind_residual(w, p, metrics, cfg, por=por)
+    elif "matrix" in cfg.discretization and not cfg.coarse_level:
+        # central flux + |A_roe|-scaled JST blend (fluxes.F90
+        # inviscidDissFluxMatrix:403); coarse levels take the constant
+        # scalar dissipation below, as the reference's coarse variants do
+        from adflow_torch.physics.upwind import matrix_dissipation_residual
+        r = inviscid_residual(w, p, metrics, 0.0, 0.0, cfg.diss_exponent,
+                              por=por)
+        r = r + matrix_dissipation_residual(w, p, metrics, cfg, por=por)
+    elif _inviscid_kernel_applies(w, metrics, cfg, por):
         # central + JST mean-flow part of Euler and laminar residuals (and
         # of RANS ones K1 does not cover) through the inviscid kernel
         from adflow_torch.ops.cuda_inviscid import fused_inviscid_residual

@@ -3,9 +3,11 @@ adflow_tpu/physics/surface.py).
 
 Pressure force on a wall face: F += (p_face - pInf) * S_out, with S_out the
 face area vector pointing out of the fluid. Viscous stress uses the same
-face flux as the viscous residual. Overset weights, the zipper mesh,
-cp-target inverse design and flow-through integration are not ported
-(ROADMAP.md queue 1 items 11 and 13).
+face flux as the viscous residual. ``flow_through`` integrates the mass
+flow and the mass- and area-averaged totals over inflow and outflow
+planes. Overset weights, the zipper mesh, cp-target inverse design and
+the family-restricted functions are not ported (ROADMAP.md queue 1 items
+11 and 13).
 """
 
 from __future__ import annotations
@@ -17,7 +19,7 @@ import torch
 
 from adflow_torch.core.mesh import (VISCOUS_WALL_BCS, WALL_BCS, BCType,
                                     MultiBlockMesh)
-from adflow_torch.core.refstate import ReferenceState
+from adflow_torch.core.refstate import GAMMA, ReferenceState
 from adflow_torch.physics.thermo import IMX, IMZ, IRHO, pressure
 
 # BC types whose patches the JAX package integrates as flow-through planes
@@ -218,6 +220,11 @@ def cost_functions(forces: Dict[str, torch.Tensor], ref: ReferenceState
     for k in ("sepsensor", "cavitation", "cpmin_exact", "area"):
         if k in forces:
             out[k] = forces[k]
+    # flow-through functions (mdot, mavgptot, ...); "area" becomes the
+    # flow-through area, as in the JAX package
+    for k, v in forces.items():
+        if k.startswith("flow_") and k != "flow_fm":
+            out[k[5:]] = v
     return out
 
 
@@ -269,3 +276,53 @@ def wall_sensors(w_list, metrics_list, patches: Sequence[WallPatch],
         out["cpmin_exact"] = -torch.log(
             cp_ks / torch.clamp(area, min=1e-30)) / CAVITATION_RHO
     return out
+
+
+def flow_through(w_list, metrics_list, patches: Sequence[WallPatch],
+                 ref: ReferenceState) -> Dict[str, torch.Tensor]:
+    """Mass flow and mass- and area-averaged totals through inflow and
+    outflow planes (reference surfaceIntegrations.F90 flowIntegrationFace:
+    894). Positive mdot = flow into the domain (the reference's sign
+    convention: the inward normal is positive at inflow families). Halos
+    of w must be filled."""
+    like = w_list[0]
+    kw = dict(dtype=like.dtype, device=like.device)
+    mdot, m_pt, m_tt, m_ps, m_mn, a_pt, a_ps, area = (
+        torch.zeros((), **kw) for _ in range(8))
+    g = GAMMA
+    for patch in patches:
+        w = w_list[patch.block]
+        m = metrics_list[patch.block]
+        s = (m.si, m.sj, m.sk)[patch.axis]
+        s_out = patch.sign * s[patch.face_sl]
+        da = torch.linalg.norm(s_out, dim=-1)
+        wf = 0.5 * (w[patch.int_sl] + w[patch.ghost_sl])
+        rho = wf[..., IRHO]
+        v = wf[..., IMX:IMZ + 1] / rho[..., None]
+        p = pressure(wf)
+        c2 = g * p / rho
+        mn = torch.linalg.norm(v, dim=-1) / torch.sqrt(c2)
+        pt = p * (1.0 + 0.5 * (g - 1.0) * mn ** 2) ** (g / (g - 1.0))
+        tt_ratio = (g * p / rho) * (1.0 + 0.5 * (g - 1.0) * mn ** 2)
+        dm = -rho * torch.sum(v * s_out, dim=-1)     # + into the domain
+        mdot = mdot + torch.sum(dm)
+        m_pt = m_pt + torch.sum(dm * pt)
+        m_tt = m_tt + torch.sum(dm * tt_ratio)
+        m_ps = m_ps + torch.sum(dm * p)
+        m_mn = m_mn + torch.sum(dm * mn)
+        a_pt = a_pt + torch.sum(da * pt)
+        a_ps = a_ps + torch.sum(da * p)
+        area = area + torch.sum(da)
+    safe_m = torch.where(torch.abs(mdot) > 1e-30, mdot,
+                         torch.ones((), **kw))
+    safe_a = torch.maximum(area, torch.full((), 1e-30, **kw))
+    return {
+        "flow_mdot": mdot,
+        "flow_mavgptot": m_pt / safe_m,
+        "flow_mavgttot": m_tt / safe_m,
+        "flow_mavgps": m_ps / safe_m,
+        "flow_mavgmn": m_mn / safe_m,
+        "flow_aavgptot": a_pt / safe_a,
+        "flow_aavgps": a_ps / safe_a,
+        "flow_area": area,
+    }

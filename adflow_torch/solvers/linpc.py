@@ -22,8 +22,9 @@ The adjoint's transposed apply (``line_pc_apply_transposed``) uses the
 same stored factors, transposed, with the sweeps in reverse order; the JAX
 package factors the transposed blocks at every apply instead.
 
-Not ported: the matrix (characteristic) split for upwind and matrix
-dissipation (ROADMAP.md queue 1 item 9).
+Upwind and matrix-dissipation discretizations take the characteristic
+split instead of the scalar one (``build_line_pc``), with |A_roe| blocks
+from ``abs_flux_jacobians``.
 """
 
 from __future__ import annotations
@@ -39,6 +40,7 @@ from adflow_torch.core.refstate import GAMMA
 from adflow_torch.physics.fluxes import extended_face_areas, spectral_radii
 from adflow_torch.physics.thermo import IMX, IMZ, IRHO, IRHOE, pressure
 from adflow_torch.physics.timestep import viscous_spectral_radii
+from adflow_torch.physics.upwind import roe_abs_jacobian_apply
 from adflow_torch.solvers.dadi import (
     tridiag_factor, tridiag_solve_factored, tridiag_solve_factored_transposed)
 
@@ -66,6 +68,33 @@ def flux_jacobians(w5_cells, svecs):
         svecs, w5_cells.shape[:-1] + (3,)).reshape(-1, 3)
     return _flux_jac(flat_w, flat_s).reshape(
         w5_cells.shape[:-1] + (5, 5)).to(w5_cells.dtype)
+
+
+def _prim_from_cons(w5):
+    """[rho, u, v, w, p] from conservative 5-vectors (trailing axis), the
+    pressure floored at 1e-10."""
+    rho = w5[..., 0:1]
+    vel = w5[..., 1:4] / rho
+    ke = 0.5 * torch.sum(w5[..., 1:4] * vel, dim=-1, keepdim=True)
+    p = (GAMMA - 1.0) * (w5[..., 4:5] - ke)
+    return torch.cat([rho, vel, torch.maximum(
+        p, torch.as_tensor(1e-10, dtype=p.dtype, device=p.device))], dim=-1)
+
+
+def abs_flux_jacobians(w5_cells, svecs):
+    """Batched |A_roe(w)|.S (…,5,5) from conservative states: the linear
+    map of the matrix-dissipation / Roe splitting
+    (physics/upwind.py roe_abs_jacobian_apply with qL = qR, its eigenvalue
+    floors included). The JAX package takes ``vmap(jacfwd)`` of the apply
+    at dw = 0; the apply is linear in dw, so here it is evaluated on the
+    five unit vectors at once, the same operations as the forward-mode
+    tangents, in the dtype of ``w5_cells``."""
+    batch = w5_cells.shape[:-1] + (5,)
+    q = _prim_from_cons(w5_cells)[..., None, :].expand(batch + (5,))
+    s = torch.broadcast_to(svecs[..., None, :], batch + (3,))
+    eye = torch.eye(5, dtype=w5_cells.dtype, device=w5_cells.device)
+    # row k of the apply on eye is column k of the matrix
+    return roe_abs_jacobian_apply(q, q, s, eye).transpose(-1, -2)
 
 
 def solve_small(A, B):
@@ -196,15 +225,19 @@ def build_line_pc(w, metrics, cfg, ref, dtinv, axes=(1,),
 
     w: halo-padded state (filled); dtinv: (ni,nj,nk) V/dt diagonal.
     axes: sweep directions. kappa scales the scalar-|A| part of the
-    splitting (A +- kappa*lambda I). The central scalar-dissipation split
-    only: upwind and matrix-dissipation discretizations take the
-    characteristic split in the JAX package, which is not ported.
+    splitting (A +- kappa*lambda I).
+
+    Upwind and matrix-dissipation discretizations take the characteristic
+    split instead: their physical dissipation of the entropy and shear rows
+    is |u_n|, not |u_n|+c, which the scalar lambda*I split over-dissipates
+    (GMRES stalls near 0.3 relative on the matrix-dissipation NACA0012 ANK
+    solve, as the JAX package notes). L = -0.5(A_m + |A_m|), U = 0.5(A_p -
+    |A_p|) and a full 5x5 diagonal D = (V/dt + kappa * cross radii) I +
+    0.5(|A_c,m| + |A_c,p|), the first-order Roe line Jacobian (reference:
+    setupStateResidualMatrix, adjointUtils.F90:7).
     """
-    if (cfg.discretization.startswith("upwind")
-            or "matrix" in cfg.discretization):
-        raise NotImplementedError(
-            "the matrix line-PC split for upwind and matrix dissipation "
-            "(ROADMAP.md queue 1 item 9)")
+    matrix_split = (cfg.discretization.startswith("upwind")
+                    or "matrix" in cfg.discretization)
     p = torch.clamp(pressure(w), min=1e-10)
     rI, rJ, rK = spectral_radii(w, p, metrics, cfg.ls_precon_mach)
     rads = [rI, rJ, rK]
@@ -250,9 +283,20 @@ def build_line_pc(w, metrics, cfg, ref, dtinv, axes=(1,),
 
         A_m = flux_jacobians(w_m, s_m)
         A_p = flux_jacobians(w_p, s_p)
-        L = -0.5 * coupling * (A_m + kappa * lam_m[..., None, None] * eye)
-        U = 0.5 * coupling * (A_p - kappa * lam_p[..., None, None] * eye)
-        D = dscalar[..., None, None] * eye
+        if matrix_split:
+            w_c = w[2:-2, 2:-2, 2:-2, :5]
+            L = -0.5 * coupling * (A_m + abs_flux_jacobians(w_m, s_m))
+            U = 0.5 * coupling * (A_p - abs_flux_jacobians(w_p, s_p))
+            # pseudo-time + the scalar radii of the two cross directions +
+            # the sweep direction's matrix |A| halves
+            r_cross = rtot - rads[ax][1:-1, 1:-1, 1:-1]
+            D = ((dtinv + kappa * r_cross)[..., None, None] * eye
+                 + 0.5 * (abs_flux_jacobians(w_c, s_m)
+                          + abs_flux_jacobians(w_c, s_p)))
+        else:
+            L = -0.5 * coupling * (A_m + kappa * lam_m[..., None, None] * eye)
+            U = 0.5 * coupling * (A_p - kappa * lam_p[..., None, None] * eye)
+            D = dscalar[..., None, None] * eye
         mean_ops.append(tuple(torch.movedim(a, ax, 0).contiguous()
                               for a in (L, D, U)))
 

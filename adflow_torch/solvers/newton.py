@@ -22,8 +22,13 @@ once, and the number of exact residual evaluations it made. The JAX
 package's ``jax.vmap`` over the three merit step sizes is a loop of three
 evaluations here.
 
+With ``precision='mixed'`` the f32 phases hand over to an f64
+continuation: the same driver re-entered in float64 from the f32 state,
+with f64 metrics and free stream (``mixed_data``). It runs the plain
+residual, as the kernels are f32 only.
+
 Not ported: the multigrid (AMG) global preconditioner (ROADMAP.md queue 1
-item 10) and the f64 continuation of ``precision='mixed'`` (item 6).
+item 10).
 """
 
 from __future__ import annotations
@@ -106,6 +111,8 @@ class StepRecord(NamedTuple):
     res_evals: int         # exact residual evaluations in the step
     krylov_matvecs: int    # GMRES matvecs (one per cycle + iterations)
     seconds: float         # host wall time, PC fetch to stats on the host
+    dtype: Optional[torch.dtype] = None   # the state's: float64 in the f64
+    #                        continuation of precision='mixed'
 
 
 def pc_apply_vec(pc_data, packer: Packer, v):
@@ -134,12 +141,17 @@ def build_newton_fns(template_w_list, metrics_list, topo: MeshTopology,
                                extras_list)
         return packer.pack(r_list)
 
-    # first-order twin: central schemes lump the 4th difference into a
-    # constant 2nd-difference coefficient vis2 + sigma*vis4 (reference
-    # inviscidDissFluxScalarApprox); it runs on the plain path
-    cfg_approx = dataclasses.replace(
-        cfg, coarse_level=True, use_kernels=False,
-        vis2=cfg.vis2 + approx_sigma * cfg.vis4)
+    # first-order twin: upwind drops to the first-order limiter; central
+    # schemes lump the 4th difference into a constant 2nd-difference
+    # coefficient vis2 + sigma*vis4 (reference
+    # inviscidDissFluxScalarApprox). Neither reaches a kernel: upwind never
+    # does, and the lumped twin runs on the plain path
+    if cfg.discretization.startswith("upwind"):
+        cfg_approx = dataclasses.replace(cfg, limiter="first order")
+    else:
+        cfg_approx = dataclasses.replace(
+            cfg, coarse_level=True, use_kernels=False,
+            vis2=cfg.vis2 + approx_sigma * cfg.vis4)
 
     def res_flat_approx(wvec):
         w_list = packer.unpack_into(wvec, template)
@@ -489,12 +501,19 @@ class _LaggedPC:
 
 def solve_newton_driver(w_list, metrics_list, topo, cfg, ref, winf, opts,
                         extras_list=None, monitor=None,
-                        deadline: Optional[float] = None):
+                        deadline: Optional[float] = None, mixed_data=None):
     """RK startup, ANK phase and NK phase; returns (w_list, SolveInfo).
 
     ``SolveInfo.steps`` holds a ``StepRecord`` per ANK/NK step. Besides the
     steps, the driver evaluates the exact residual twice at its start (the
-    free-stream and the starting norms)."""
+    free-stream and the starting norms).
+
+    ``mixed_data``: (metrics64_list, winf64, extras64_list), present for
+    precision='mixed'. With NK on, the f32 ANK phase then hands over once
+    the residual is 1e-2 of the free-stream one, and the NK phase becomes
+    the f64 continuation: this driver in float64 from the f32 state (the
+    metrics recomputed from f64 node coordinates, not upcast: f32 face
+    areas break the telescoping flux sum at ~1e-7 relative)."""
     fns = build_newton_fns(w_list, metrics_list, topo, cfg, ref, winf,
                            extras_list,
                            approx_sigma=float(
@@ -514,7 +533,7 @@ def solve_newton_driver(w_list, metrics_list, topo, cfg, ref, winf, opts,
         st = res.stats.double().cpu().numpy()   # ONE device->host copy
         steps.append(StepRecord(kind, cfl, st, res.res_evals,
                                 res.krylov_matvecs,
-                                time.perf_counter() - t0))
+                                time.perf_counter() - t0, res.w.dtype))
         return res.w, st
 
     # convergence is measured against the free-stream residual norm
@@ -593,6 +612,14 @@ def solve_newton_driver(w_list, metrics_list, topo, cfg, ref, winf, opts,
         while it < n_cycles and rnorm > target and not failed:
             if use_nk and rnorm <= nk_switch:
                 break
+            # mixed-precision handover: the f32 ANK floors at its own
+            # evaluation noise, and the f64 continuation (itself a
+            # pseudo-transient continuation) takes over once a transient
+            # has settled, at 1e-2 of the free-stream residual
+            if mixed_data is not None and use_nk and rnorm <= 1e-2 * r0:
+                wvec = best_w if best_r < rnorm else wvec
+                rnorm = min(rnorm, best_r)
+                break
             if deadline is not None and time.time() >= deadline:
                 break
             t0 = time.perf_counter()
@@ -650,8 +677,32 @@ def solve_newton_driver(w_list, metrics_list, topo, cfg, ref, winf, opts,
             else:
                 cfl_cap = min(cfl_cap * 1.05, cfl_limit)
 
+    # ---- f64 continuation (precision='mixed') ----
+    # deadline guard, as in the JAX package (whose f64 phase starts with
+    # compiles that cannot be interrupted): only with a minute left
+    if (use_nk and not failed and rnorm > target
+            and mixed_data is not None
+            and (deadline is None or time.time() < deadline - 60.0)):
+        # the f32 phases hand over once the transient has settled; the
+        # endgame re-enters this driver in float64 (f64 ANK re-ramps, f64
+        # NK finishes to the deep target), warm-started from the f32 state
+        metrics64, winf64, extras64 = mixed_data
+        w_list64 = [w.to(torch.float64)
+                    for w in fns.packer.unpack_into(wvec, w_list)]
+        w_list64, info64 = solve_newton_driver(
+            w_list64, metrics64, topo, cfg, ref, winf64,
+            opts, extras_list=extras64, monitor=monitor, deadline=deadline,
+            mixed_data=None)
+        wvec = fns.packer.pack_w([w.to(wvec.dtype) for w in w_list64])
+        it += info64.iterations
+        rnorm = info64.total_r_final
+        failed = info64.failed
+        if len(info64.history):
+            hist.append(info64.history)
+        steps.extend(info64.steps)
+
     # ---- NK phase ----
-    if use_nk and not failed and rnorm > target:
+    elif use_nk and not failed and rnorm > target:
         nk_step = make_nk_step(fns, opts)
         eta_max = float(opts["NKLinearSolveTol"])
         use_ew = bool(opts["NKUseEW"])

@@ -15,8 +15,8 @@ def resolve_dtype(precision: str = "auto", device=None) -> torch.dtype:
     if p == "float64":
         return torch.float64
     if p in ("float32", "tf32", "mixed"):
-        # 'mixed': f32 working dtype (the f64 Newton endgame of the JAX
-        # package is not part of this port yet)
+        # 'mixed': f32 working dtype; the Newton driver's endgame runs in
+        # f64 (solvers/newton.py, the f64 continuation)
         return torch.float32
     dev = torch.device(device) if device is not None else torch.device("cpu")
     return torch.float64 if dev.type == "cpu" else torch.float32

@@ -36,7 +36,22 @@ well). Then, each phase timed:
            solved 256x64x64 Euler wing, 40 GMRES iterations, K2 launches
            counted; the transposed PC's build and apply and one vjp
            matvec timed; the dot-product identity at full width; three
-           adjoint GMRES iterations under torch.profiler.
+           adjoint GMRES iterations under torch.profiler;
+  [17]     matrix dissipation on the main path's wing: 3 ANK steps from the
+           free stream with the characteristic line PC, exactly no kernel
+           launch; the PC's build and apply, a jvp matvec, the upwind (Roe,
+           van Albada) residual and its jvp timed; the peak device memory;
+           one step under torch.profiler;
+  [18]     small cases, card against CPU: the upwind residual for each
+           Riemann solver and limiter and the matrix residual, a matrix ANK
+           step, the plate's flow-through functions, each new BC's ghost
+           fill on the channel; a precision='mixed' NK solve of the Euler
+           wing, K2 in its f32 phase only;
+  [19]     the turbulent flat plate of tests/test_solve_rans.py on the
+           card with precision='mixed' and NK, cut in depth to 8e-3 of the
+           free-stream residual: K1 in the f32 phase only, the f64
+           continuation after the handover (converged to 1e-7 against a
+           float64 solve by tools/plate_converged.py).
 Any failed check raises, so the exit code is not 0. The last line is
 ``{"ok": true, "device": {...}}``; the line before it lists the kernels with
 their launches, errors and times (``ms`` by CUDA events around calls of the
@@ -107,6 +122,45 @@ DOT_RTOL_F32 = 1e-2
 # [16], the main path's adjoint: depth cut to 40 GMRES iterations
 FULL_ADJ_OPTS = {"adjointSubspaceSize": 40, "adjointMaxIter": 40,
                  "printIterations": True, "adjointMonitorStep": 10}
+
+# [17], the slice at full width: matrix dissipation on the main path's
+# mesh, depth cut to 3 ANK steps; and the upwind residual at its state
+MATRIX = {"discretization": "central plus matrix dissipation"}
+MATRIX_STEPS = 3
+UPWIND = {"discretization": "upwind", "riemannSolver": "Roe",
+          "limiter": "van Albada"}
+# [18], the small cases: card (f32) against the CPU (f64) at the seeded
+# perturbed free stream
+UPWIND_VARIANTS = [("upwind", rs, lim) for rs in ("roe", "van leer")
+                   for lim in ("van albada", "minmod", "no limiter",
+                               "first order")] + [
+    ("central plus matrix dissipation", "roe", "van albada")]
+FLOW_FUNCS = ["mdot", "mavgptot", "mavgttot", "mavgps", "mavgmn",
+              "aavgptot", "aavgps", "area"]
+FLOW_RTOL = 1e-4    # the plate's flow-through functions, card vs CPU
+BC_RTOL = 1e-6      # a ghost fill, card vs CPU, of the largest entry
+CHANNEL_DIMS = (16, 8, 2)
+MIXED = {"precision": "mixed", "useNKSolver": True}
+# the small wing's mixed solve: to 1e-5 with NK below 1e-3, at most 10
+# Krylov iterations an ANK step (host-bound steps on the card: 40 made it
+# 225 s)
+MIXED_WING_OPTS = dict(MIXED, nCycles=60, L2Convergence=1e-5,
+                       NKSwitchTol=1e-3, ANKMaxIter=10)
+# [19], the turbulent flat plate of tests/test_solve_rans.py with
+# precision='mixed': cut in depth to 8e-3 of the free-stream residual (the
+# f32 phase to its handover at 1e-2, then the f64 continuation, a few
+# steps); converged to 1e-7 by tools/plate_converged.py (an ANK step of
+# the plate takes 10-30 s on the card, host-bound, and the mixed solve
+# needs more than 1500 s to converge: see PERF.md)
+PLATE = dict(name="tplate", mach=0.2, reynolds=2e6, reynoldsLength=1.0,
+             T=288.15)
+PLATE_MESH = dict(ni=48, nj=48, wall_spacing=2e-5, height=0.5)
+PLATE_OPTS = {"equationType": "RANS", "ANKSwitchTol": 1.5,
+              "L2Convergence": 1e-7, "nCycles": 150,
+              "printIterations": False, "printTiming": False}
+PLATE_CUT = 8e-3
+CF_RTOL = 0.15          # mid-plate cf against 0.0576 Re_x^-1/5
+PLATE_REF_RTOL = 1e-5   # cd and cf, mixed against float64, both converged
 
 # peak rates for the bound: (device-memory bytes/s, f32 FLOP/s outside the
 # tensor cores), NVIDIA data sheets; the SXM part is the default
@@ -449,12 +503,12 @@ def euler_options(n_steps):
             "printIterations": False, "printTiming": False}
 
 
-def print_steps(info, kernel):
+def print_steps(info, evals="K2 launches"):
     for i, r in enumerate(info.steps):
         print(f"  step {i + 1}: {r.kind} res {r.stats[1]:.6e}, CFL "
               f"{r.cfl:.4g}, Krylov iterations {int(r.stats[4])}, linres "
-              f"{r.stats[5]:.3e}, {r.seconds * 1e3:.3f} ms, {kernel} "
-              f"launches {r.res_evals}")
+              f"{r.stats[5]:.3e}, {r.seconds * 1e3:.3f} ms, {evals} "
+              f"{r.res_evals}")
 
 
 def perturbed_state(solver, seed=0, amp=1e-3):
@@ -466,12 +520,13 @@ def perturbed_state(solver, seed=0, amp=1e-3):
             * rng.standard_normal(w.shape)).reshape(-1)
 
 
-def small_ank_parity():
+def small_ank_parity(n_steps=3, options=None):
     """The port's default ANK solve of the 16x8x8 Euler wing on the card
-    (f32, through K2) against the same solve on the CPU (f64, plain), 3 steps
-    from the same seeded 0.1% perturbation of the free stream: at the exact
-    free stream the residual sits on the kink of the JST sensor's |d2p|,
-    where rounding picks the derivative (tests/torch_pairs.py)."""
+    (f32, through K2 with the default options) against the same solve on
+    the CPU (f64, plain), ``n_steps`` steps from the same seeded 0.1%
+    perturbation of the free stream: at the exact free stream the residual
+    sits on the kink of the JST sensor's |d2p|, where rounding picks the
+    derivative (tests/torch_pairs.py)."""
     from adflow_torch.api.solver import ADFLOW
     from adflow_torch.core.refstate import AeroProblem
     from adflow_torch.meshgen.analytic import wing_omesh
@@ -479,7 +534,8 @@ def small_ank_parity():
     runs = {}
     w0 = None
     for device in ("cpu", "cuda:0"):
-        solver = ADFLOW(options=euler_options(3),
+        solver = ADFLOW(options=dict(euler_options(n_steps),
+                                     **(options or {})),
                         mesh=wing_omesh(ni=16, nj=8, nk=8), device=device)
         ap = AeroProblem(**EULER)
         solver.setAeroProblem(ap)
@@ -493,7 +549,8 @@ def small_ank_parity():
     h_rel = float(np.abs(ig.history[:, 0] - ic.history[:, 0]).max()
                   / np.abs(ic.history[:, 0]).max())
     f_rel = max(abs(fg[k] - fc[k]) / abs(fc[k]) for k in fc)
-    print(f"  wing 16x8x8, 3 ANK steps: card ({dg}) vs CPU ({dc}): history "
+    print(f"  wing 16x8x8, {n_steps} ANK steps, {options or 'defaults'}: "
+          f"card ({dg}) vs CPU ({dc}): history "
           f"rel err {h_rel:.3e}, cl/cd rel err {f_rel:.3e} (tolerance "
           f"{ANK_SOLVE_RTOL:g}); Krylov iterations card "
           f"{[int(r.stats[4]) for r in ig.steps]}, CPU "
@@ -530,7 +587,7 @@ def ank_main_path():
     print(f"  {mesh.n_cells} cells, dtype {solver.dtype}, device "
           f"{solver.device}; set-up {t1 - t0:.3f} s; free-stream residual "
           f"{info.total_r0:.6e}")
-    print_steps(info, "K2")
+    print_steps(info)
     print(f"  {len(info.steps)} ANK steps in {t2 - t1:.3f} s: "
           f"{(t2 - t1) / len(info.steps) * 1e3:.3f} ms per step")
     print(f"  cl {funcs['m6e_cl']!r}, cd {funcs['m6e_cd']!r}")
@@ -567,7 +624,7 @@ def rans_ank_path():
     t1 = time.perf_counter()
     k1, k2 = cuda_rans.LAUNCHES, cuda_inviscid.LAUNCHES
     info = solver.solve_info
-    print_steps(info, "K1")
+    print_steps(info, "K1 launches")
     expected = 2 + sum(r.res_evals for r in info.steps)
     print(f"  {len(info.steps)} steps in {t1 - t0:.3f} s; K1 launches {k1} "
           f"(expected {expected}), K2 launches {k2}")
@@ -615,9 +672,10 @@ def ank_breakdown(solver):
             matvec, -r, m=m, restarts=2,
             tol=float(opts["ANKLinearSolveTol"]), precond=precond)), 3),
     )
+    times = {}
     for label, fn, reps in parts:
-        print(f"  {label}: {time_ms(fn, reps=reps, warmup=1):.4f} ms "
-              f"(median of {reps})")
+        times[label] = time_ms(fn, reps=reps, warmup=1)
+        print(f"  {label}: {times[label]:.4f} ms (median of {reps})")
     print(f"  GMRES: {sols[-1].iters} iterations, {sols[-1].matvecs} "
           f"matvecs, linres {sols[-1].res_norm / sols[-1].b_norm:.3e}")
 
@@ -628,8 +686,9 @@ def ank_breakdown(solver):
         for _ in range(2):
             w = step(w, cfl, pc).w
 
-    return profile_device(two_steps, "2 ANK steps",
-                          "inviscid_residual_kernel")
+    return (profile_device(two_steps, "2 ANK steps",
+                           "inviscid_residual_kernel"),
+            (times["PC build"], times["PC apply"]))
 
 
 def profile_device(run, label, kernel=None):
@@ -847,6 +906,314 @@ def full_adjoint(solver):
     return k2
 
 
+def launches():
+    """(K1, K2) launch counts."""
+    from adflow_torch.ops import cuda_inviscid, cuda_rans
+    return cuda_rans.LAUNCHES, cuda_inviscid.LAUNCHES
+
+
+def zero_launches():
+    from adflow_torch.ops import cuda_inviscid, cuda_rans
+    cuda_inviscid.LAUNCHES = cuda_rans.LAUNCHES = 0
+
+
+def matrix_path(scalar_pc_ms):
+    """[17]: the default ANK solve of the main path's wing with matrix
+    dissipation, MATRIX_STEPS steps from the free stream, exactly no kernel
+    launch (the JAX package routes matrix dissipation and upwind before
+    its kernels); its pieces at the final state beside the scalar PC's of
+    [14], the upwind residual there, the peak device memory and one
+    profiled step."""
+    import dataclasses
+
+    from adflow_torch.api.solver import ADFLOW
+    from adflow_torch.core.refstate import AeroProblem
+    from adflow_torch.meshgen.analytic import wing_omesh
+    from adflow_torch.solvers import newton
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    zero_launches()
+    solver = ADFLOW(options=dict(euler_options(MATRIX_STEPS), **MATRIX),
+                    mesh=wing_omesh(ni=FULL_DIMS[0], nj=FULL_DIMS[1],
+                                    nk=FULL_DIMS[2]))
+    ap = AeroProblem(**EULER)
+    solver.setAeroProblem(ap)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    solver(ap)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    funcs = solver.evalFunctions(ap, {})
+    info = solver.solve_info
+    print_steps(info, "residual evaluations (no kernel)")
+    print(f"  {len(info.steps)} ANK steps in {t2 - t1:.3f} s: "
+          f"{(t2 - t1) / len(info.steps) * 1e3:.3f} ms per step; "
+          f"cl {funcs['m6e_cl']!r}, cd {funcs['m6e_cd']!r}")
+    assert solver.dtype == torch.float32
+    assert len(info.steps) == MATRIX_STEPS and not info.failed
+    assert np.all(np.isfinite(info.history))
+    assert np.isfinite(funcs["m6e_cl"]) and np.isfinite(funcs["m6e_cd"])
+    assert info.history[-1, 0] < info.total_r0, "residual did not fall"
+
+    opts = solver.options
+    fns = newton.build_newton_fns(
+        solver.w_list, solver.metrics_list, solver.topo, solver.cfg,
+        solver.ref, solver.winf, solver.extras_list)
+    wvec = fns.packer.pack_w(solver.w_list)
+    cfl = info.steps[-1].cfl
+    axes, kappa = newton._pc_params(opts)
+    pc = fns.build_pc(wvec, cfl, axes=axes, kappa=kappa)
+    v = fns.res_flat(wvec)
+    v = v / torch.linalg.norm(v)
+    cfg_up = dataclasses.replace(
+        solver.cfg, discretization="upwind", riemann_solver="roe",
+        limiter="van albada")
+    up = newton.build_newton_fns(
+        solver.w_list, solver.metrics_list, solver.topo, cfg_up,
+        solver.ref, solver.winf, solver.extras_list)
+    parts = (
+        ("residual (matrix dissipation, plain)",
+         lambda: fns.res_flat(wvec), 10),
+        ("one jvp matvec (matrix dissipation)",
+         lambda: torch.func.jvp(fns.res_flat, (wvec,), (v,)), 10),
+        ("characteristic PC build", lambda: fns.build_pc(
+            wvec, cfl, axes=axes, kappa=kappa), 3),
+        ("characteristic PC apply",
+         lambda: newton.pc_apply_vec(pc, fns.packer, v), 10),
+        ("upwind residual (Roe, van Albada)", lambda: up.res_flat(wvec), 10),
+        ("upwind jvp", lambda: torch.func.jvp(up.res_flat, (wvec,), (v,)),
+         10),
+    )
+    for label, fn, reps in parts:
+        print(f"  {label}: {time_ms(fn, reps=reps, warmup=1):.4f} ms "
+              f"(median of {reps})")
+    print(f"  [14]'s scalar PC at the scalar path's state: build "
+          f"{scalar_pc_ms[0]:.4f} ms, apply {scalar_pc_ms[1]:.4f} ms")
+    r_up = up.res_flat(wvec)
+    assert bool(torch.isfinite(r_up).all())
+    step = newton.make_ank_step(fns, opts)
+    profile_device(lambda: step(wvec, cfl, pc), "1 ANK step (matrix)")
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    k1, k2 = launches()
+    print(f"  peak device memory {peak:.3f} GiB; K1 launches {k1}, K2 "
+          f"launches {k2} (expected 0 and 0: no kernel on this path)")
+    assert (k1, k2) == (0, 0), (k1, k2)
+
+
+def small_state(device, mesh, ap, options, w0=None):
+    """A solver of ``mesh`` on ``device`` at the seeded perturbed free
+    stream of ``ap`` (``w0``, else made here); returns (solver, w0)."""
+    from adflow_torch.api.solver import ADFLOW
+    from adflow_torch.core.refstate import AeroProblem
+
+    solver = ADFLOW(options=options, mesh=mesh, device=device)
+    solver.setAeroProblem(AeroProblem(**ap))
+    w0 = perturbed_state(solver) if w0 is None else w0
+    solver.setStates(w0)
+    return solver, w0
+
+
+def channel_with(kind):
+    """The channel of meshgen/analytic.py at CHANNEL_DIMS with its imin
+    (an inflow kind) or imax (an outflow kind) face of BC ``kind``, with
+    seeded per-subface data where the type takes them."""
+    from adflow_torch.core.mesh import BCSubface, BCType, Face
+    from adflow_torch.meshgen.analytic import channel_mesh
+
+    g, mach = 1.4, 0.4
+    p_inf = 1.0 / g
+    u_inf = mach * np.sqrt(g * p_inf)
+    nj, nk = CHANNEL_DIMS[1:]
+    rng = np.random.default_rng(0)
+
+    def arr(v):
+        return v * (1.0 + 0.01 * rng.standard_normal((nj, nk)))
+
+    data = {
+        "SUBSONIC_INFLOW": {"rho": 1.02, "vmag": arr(0.9 * u_inf),
+                            "dir": np.array([1.0, 0.05, 0.0])},
+        "MASS_BLEED_INFLOW": {},
+        "DOMAIN_INTERFACE_TOTAL": {
+            "Pt": arr(p_inf * (1 + 0.2 * mach ** 2) ** 3.5),
+            "Tt": 1 + 0.2 * mach ** 2},
+        "DOMAIN_INTERFACE_RHOUVW": {"rho": arr(1.0), "vx": arr(u_inf)},
+        "SUPERSONIC_INFLOW": {"rho": arr(1.0), "vx": arr(1.1 * u_inf)},
+        "DOMAIN_INTERFACE_ALL": {"rho": 1.01, "P": arr(p_inf)},
+        "DOMAIN_INTERFACE_RHO": {"rho": arr(1.0)},
+        "MASS_BLEED_OUTFLOW": {"P": arr(p_inf)},
+        "DOMAIN_INTERFACE_P": {"P": 0.98 * p_inf},
+        "SUPERSONIC_OUTFLOW": {},
+        "EXTRAPOLATE": {},
+    }[kind]
+    mesh = channel_mesh(*CHANNEL_DIMS)
+    blk = mesh.blocks[0]
+    face = Face.IMAX if "OUTFLOW" in kind or kind in (
+        "DOMAIN_INTERFACE_P", "EXTRAPOLATE") else Face.IMIN
+    blk.bcs = [sf for sf in blk.bcs if sf.face is not face] + [
+        BCSubface(face, getattr(BCType, kind), family="plane", data=data)]
+    return mesh
+
+
+def small_slice_parity():
+    """[18]: the upwind and matrix residuals, one matrix ANK step, the
+    plate's flow-through functions and each new BC's ghost fill on the
+    card (f32) against the CPU (f64), then a precision='mixed' NK solve of
+    the Euler wing on the card; returns (K1, K2) launches of the mixed
+    solve."""
+    import dataclasses
+
+    from adflow_torch.meshgen.analytic import flatplate_mesh, wing_omesh
+    from adflow_torch.physics.residual import block_residual
+    from adflow_torch.physics.thermo import pressure
+
+    def wing(device, w0=None, **options):
+        return small_state(device, wing_omesh(ni=16, nj=8, nk=8), EULER,
+                           dict(euler_options(1), **options), w0)
+
+    zero_launches()
+    cpu, w0 = wing("cpu")
+    card, _ = wing("cuda:0", w0)
+    wc, wg = cpu._filled_w()[0], card._filled_w()[0]
+    m = cpu.metrics_list[0]
+    scale = flux_scale(wc, pressure(wc), (m.siE, m.sjE, m.skE))
+    worst = 0.0
+    for disc, rs, lim in UPWIND_VARIANTS:
+        kw = dict(discretization=disc, riemann_solver=rs, limiter=lim)
+        rc = block_residual(wc, m, dataclasses.replace(cpu.cfg, **kw),
+                            cpu.ref, por=cpu.topo.blocks[0].por)
+        rg = block_residual(wg, card.metrics_list[0],
+                            dataclasses.replace(card.cfg, **kw), card.ref,
+                            por=card.topo.blocks[0].por)
+        err = float(((rg.double().cpu() - rc).abs().amax(dim=(0, 1, 2))
+                     / scale).max())
+        worst = max(worst, err)
+        print(f"  {disc}, {rs}, {lim}: residual card vs CPU {err:.3e} of "
+              f"the flux scale (tolerance {FLUX_RTOL:g})")
+        assert bool(torch.isfinite(rg).all()) and err < FLUX_RTOL
+    assert launches() == (0, 0), launches()
+
+    small_ank_parity(1, MATRIX)
+    assert launches() == (0, 0), launches()
+
+    runs, w0 = [], None
+    for device in ("cpu", "cuda:0"):
+        s, w0 = small_state(
+            device, flatplate_mesh(ni=16, nj=12),
+            dict(name="fp", mach=0.3, alpha=0.0, reynolds=1e6,
+                 reynoldsLength=1.0, T=300.0),
+            dict(euler_options(1), equationType="RANS"), w0)
+        runs.append(s.evalFunctions(s.curAP, {}, FLOW_FUNCS + ["cd"]))
+    fc, fg = runs
+    f_rel = max(abs(fg[k] - fc[k]) / abs(fc[k]) for k in fc)
+    print(f"  plate 16x12, flow-through functions card vs CPU: rel "
+          f"{f_rel:.3e} (tolerance {FLOW_RTOL:g}); mdot {fg['fp_mdot']!r} "
+          f"vs {fc['fp_mdot']!r}")
+    assert len(fc) == len(fg) == len(FLOW_FUNCS) + 1 and f_rel < FLOW_RTOL
+
+    for kind in ("SUBSONIC_INFLOW", "MASS_BLEED_INFLOW",
+                 "DOMAIN_INTERFACE_TOTAL", "DOMAIN_INTERFACE_RHOUVW",
+                 "SUPERSONIC_INFLOW", "DOMAIN_INTERFACE_ALL",
+                 "DOMAIN_INTERFACE_RHO", "MASS_BLEED_OUTFLOW",
+                 "DOMAIN_INTERFACE_P", "SUPERSONIC_OUTFLOW", "EXTRAPOLATE"):
+        fills, w0 = [], None
+        for device in ("cpu", "cuda:0"):
+            s, w0 = small_state(device, channel_with(kind),
+                                dict(name="ch", mach=0.4), euler_options(1),
+                                w0)
+            fills.append(s._filled_w()[0].double().cpu())
+        err = float((fills[1] - fills[0]).abs().max()
+                    / fills[0].abs().max())
+        print(f"  channel {'x'.join(map(str, CHANNEL_DIMS))}, {kind}: ghost "
+              f"fill card vs CPU {err:.3e} of the largest entry (tolerance "
+              f"{BC_RTOL:g})")
+        assert bool(torch.isfinite(fills[1]).all()) and err < BC_RTOL
+
+    zero_launches()
+    solver, _ = wing("cuda:0", **MIXED_WING_OPTS)
+    t0 = time.perf_counter()
+    solver(solver.curAP)
+    torch.cuda.synchronize()
+    info = solver.solve_info
+    hand, f32_evals = mixed_phases(info)
+    k1, k2 = launches()
+    print(f"  precision='mixed' NK solve, Euler wing 16x8x8 on the card: "
+          f"{time.perf_counter() - t0:.3f} s, {len(info.steps)} steps, "
+          f"R/R0 {info.total_r_final / info.total_r0:.3e}; handover to f64 "
+          f"after step {hand}; K2 launches {k2}: f32 phase {2 + f32_evals} "
+          f"expected, f64 phase {k2 - 2 - f32_evals}; K1 {k1}")
+    assert info.converged and not info.failed
+    assert k2 == 2 + f32_evals and k1 == 0, (k1, k2, f32_evals)
+    return k1, k2
+
+
+def mixed_phases(info):
+    """(the steps of the f32 phase, their residual evaluations) of a
+    precision='mixed' solve; the f64 continuation must have followed."""
+    kinds = [str(r.dtype) for r in info.steps]
+    hand = kinds.index("torch.float64")
+    assert hand > 0 and set(kinds[:hand]) == {"torch.float32"}, kinds
+    return hand, sum(r.res_evals for r in info.steps[:hand])
+
+
+def plate_cf(solver):
+    """Mid-plate skin friction from the first cell off the wall, and the
+    0.0576 Re_x^-1/5 correlation there (tests/test_solve_rans.py)."""
+    w = solver._filled_w()[0].double().cpu()
+    xc = solver.metrics_list[0].xc_ext[1:-1, 1:-1, 1:-1].double().cpu()
+    wi = w[2:-2, 2:-2, 2:-2]
+    i_x = int(torch.argmin((xc[:, 0, 0, 0] - 0.5).abs()))
+    u1 = float(wi[i_x, 0, 0, 1] / wi[i_x, 0, 0, 0])
+    mu, u_inf = solver.ref.mu_inf, PLATE["mach"]
+    cf = mu * u1 / float(xc[i_x, 0, 0, 1]) / (0.5 * u_inf ** 2)
+    return cf, 0.0576 * (u_inf * float(xc[i_x, 0, 0, 0]) / mu) ** -0.2
+
+
+def plate_solve(precision, l2conv, monitor=False):
+    """The turbulent plate solved on the card with ``precision`` and NK to
+    ``l2conv`` of the free-stream residual (``monitor``: a line a step):
+    (solver, wall s, (K1, K2) launches, cd, (cf, correlation))."""
+    from adflow_torch.api.solver import ADFLOW
+    from adflow_torch.core.refstate import AeroProblem
+    from adflow_torch.meshgen.analytic import flatplate_mesh
+
+    zero_launches()
+    solver = ADFLOW(options=dict(PLATE_OPTS, precision=precision,
+                                 useNKSolver=True, L2Convergence=l2conv,
+                                 printIterations=monitor),
+                    mesh=flatplate_mesh(**PLATE_MESH))
+    t0 = time.perf_counter()
+    solver(AeroProblem(**PLATE))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    info = solver.solve_info
+    cd = solver.evalFunctions(solver.curAP, {}, ["cd"])["tplate_cd"]
+    cf = plate_cf(solver)
+    kinds = [r.kind for r in info.steps]
+    print(f"  {precision} to {l2conv:g}: {wall:.3f} s, {info.iterations} "
+          f"iterations ({kinds.count('ANK')} ANK, {kinds.count('NK')} NK "
+          f"steps), R/R0 {info.total_r_final / info.total_r0:.3e}, "
+          f"converged {info.converged}; cd {cd!r}; mid-plate cf {cf[0]!r}, "
+          f"correlation {cf[1]!r} ({cf[0] / cf[1] - 1.0:+.4f}); K1, K2 "
+          f"launches {launches()}")
+    assert info.converged and not info.failed
+    assert info.total_r_final < l2conv * info.total_r0
+    return solver, wall, launches(), cd, cf
+
+
+def plate_mixed(l2conv=PLATE_CUT, monitor=False):
+    """[19]: the turbulent plate with precision='mixed' and NK on the card
+    to ``l2conv``: K1 in the f32 phase only, the f64 continuation after
+    the handover; returns the K1 launches, cd and (cf, correlation)."""
+    solver, _, (k1, k2), cd, cf = plate_solve("mixed", l2conv, monitor)
+    hand, f32_evals = mixed_phases(solver.solve_info)
+    print(f"  handover to f64 after step {hand}; K1 launches {k1}: f32 "
+          f"phase {2 + f32_evals} expected, f64 phase {k1 - 2 - f32_evals}")
+    assert k1 == 2 + f32_evals > 2 and k2 == 0, (k1, k2, f32_evals)
+    return k1, cd, cf
+
+
 def kernel_times(label, fused, plain, tensors, consts, n_bytes, n_flop,
                  name):
     """Kernel and plain-version times (CUDA events, median of 20) and the
@@ -1020,7 +1387,7 @@ def main() -> int:
         cuda_inviscid.inviscid_residual_reference, tensors, consts,
         cuda_inviscid.min_bytes(ni, nj, nk),
         cuda_inviscid.flop_count(ni, nj, nk), name)
-    k2_times["profiled_ms"] = ank_breakdown(solver)
+    k2_times["profiled_ms"], scalar_pc_ms = ank_breakdown(solver)
 
     phase("[15] small adjoints: card against CPU, through K2 and K1")
     k1_adj, k2_adj = adjoint_parity()
@@ -1028,6 +1395,21 @@ def main() -> int:
     phase("[16] main path's adjoint: evalFunctionsSens of cl on the "
           f"{'x'.join(map(str, FULL_DIMS))} Euler wing")
     k2_full_adj = full_adjoint(solver)
+    del solver, tensors
+
+    phase("[17] the slice at full width: matrix dissipation on the "
+          f"{'x'.join(map(str, FULL_DIMS))} Euler wing, {MATRIX_STEPS} ANK "
+          "steps, no kernel")
+    matrix_path(scalar_pc_ms)
+
+    phase("[18] small cases, card against CPU: upwind and matrix residuals, "
+          "a matrix ANK step, flow-through functions, the new BCs, a mixed "
+          "NK solve")
+    _, k2_mixed = small_slice_parity()
+
+    phase("[19] the turbulent plate on the card: precision 'mixed' with "
+          f"NK, to {PLATE_CUT:g} of the free-stream residual")
+    k1_plate, _, _ = plate_mixed()
     phase()
     print(f"total wall time {time.perf_counter() - t_start:.1f} s")
 
@@ -1037,10 +1419,11 @@ def main() -> int:
          "source": "adflow_torch/csrc/rans_residual.cu",
          "replaces": "adflow_tpu/ops/pallas_rans.py:58",
          "design": "one pass, i-march",
-         "launches": k1_rk + k1_ank + k1_adj,
+         "launches": k1_rk + k1_ank + k1_adj + k1_plate,
          "launches_by_path": {"rk_rans_wing_256x64x64": k1_rk,
                               "ank_rans_wing_64x24x16": k1_ank,
-                              "adjoint_rans_wing_16x8x8": k1_adj},
+                              "adjoint_rans_wing_16x8x8": k1_adj,
+                              "mixed_rans_plate_48x48": k1_plate},
          "max_abs_err": max_abs, "max_rel_err": flux_rel,
          "max_rel_err_of_residual": max_rel, **k1_times,
          "library_ms": None},
@@ -1048,10 +1431,12 @@ def main() -> int:
          "source": "adflow_torch/csrc/inviscid_residual.cu",
          "replaces": "adflow_tpu/ops/pallas_residual.py:45",
          "design": "one pass, i-march",
-         "launches": k2_ank + k2_adj + k2_full_adj,
+         "launches": k2_ank + k2_adj + k2_full_adj + k2_mixed,
          "launches_by_path": {"ank_euler_wing_256x64x64": k2_ank,
                               "adjoint_euler_wing_16x8x8": k2_adj,
-                              "adjoint_euler_wing_256x64x64": k2_full_adj},
+                              "adjoint_euler_wing_256x64x64": k2_full_adj,
+                              "mixed_euler_wing_16x8x8": k2_mixed,
+                              "matrix_euler_wing_256x64x64": 0},
          "max_abs_err": k2_abs, "max_rel_err": k2_flux_rel, **k2_times,
          "library_ms": None},
     ]}))

@@ -13,7 +13,6 @@ In float64 on the CPU, from the same seeded numpy inputs:
   ``interop.line_pc_from_numpy``.
 """
 
-import dataclasses
 
 import jax.numpy as jnp
 import numpy as np
@@ -127,12 +126,3 @@ def test_line_pc_apply_matches_jax(pc_case):
     got = newton.pc_apply_vec(carried, tf.packer, torch.from_numpy(v))
     assert _rel(want, got.numpy()) < TOL
     assert all(pt[i].turb_scale == pj[i].turb_scale for i in range(len(pj)))
-
-
-def test_matrix_split_is_refused(pc_case):
-    _, ts, _, tf, w0 = pc_case
-    cfg = dataclasses.replace(ts.cfg, discretization="upwind")
-    w = tf.packer.unpack_into(torch.from_numpy(w0), ts.w_list)[0]
-    dtinv = torch.ones(w[2:-2, 2:-2, 2:-2].shape[:3], dtype=w.dtype)
-    with pytest.raises(NotImplementedError, match="item 9"):
-        linpc.build_line_pc(w, ts.metrics_list[0], cfg, ts.ref, dtinv)

@@ -123,7 +123,6 @@ def test_default_device_needs_a_card():
 
 @pytest.mark.parametrize("branch,opts", [
     ("ank", {"useANKSolver": True, "ANKGlobalPreconditioner": "multigrid"}),
-    ("nk", {"useNKSolver": True, "precision": "mixed"}),
     ("unsteady", {"equationMode": "unsteady"}),
     ("multigrid", {"MGCycle": "2w"}),
 ])
@@ -133,6 +132,26 @@ def test_unported_branches_raise(branch, opts):
                     device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         solver(AeroProblem(**AP))
+
+
+@pytest.mark.parametrize("option,value,item", [
+    ("useWallFunctions", True, "9"),
+    ("turbulenceModel", "SST", "9"),
+    ("lowSpeedPreconditioner", True, "9"),
+    ("meshDevices", 2, "12"),
+])
+def test_unported_options_raise(option, value, item):
+    with pytest.raises(NotImplementedError, match=f"item {item}"):
+        ADFLOW(options=dict(OPTS, **{option: value}),
+               mesh=wing_omesh(ni=8, nj=4, nk=4, viscous=True), device="cpu")
+
+
+def test_grid_motion_raises():
+    solver = ADFLOW(options=OPTS,
+                    mesh=wing_omesh(ni=8, nj=4, nk=4, viscous=True),
+                    device="cpu")
+    with pytest.raises(NotImplementedError, match="item 9"):
+        solver.setAeroProblem(AeroProblem(**dict(AP, machGrid=0.5)))
 
 
 def test_port_imports_no_jax():
