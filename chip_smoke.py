@@ -25,7 +25,7 @@ well). Then, each phase timed:
            256x64x64 through ``ADFLOW``, K2 launches counted per step;
   [13]     2 ANK steps of the RANS-SA wing at 64x24x16 through K1;
   [14]     K2's tile plan, registers and shared bytes, its times, one ANK
-           step broken down, two ANK steps under torch.profiler;
+           step broken down and under torch.profiler;
   [15]     small adjoints (``evalFunctionsSens``) on the card against the
            CPU: the 16x8x8 Euler wing through K2, with the dot-product
            identity; the 16x8x8 RANS-SA wing through K1, against the CPU
@@ -47,11 +47,12 @@ well). Then, each phase timed:
            step, the plate's flow-through functions, each new BC's ghost
            fill on the channel; a precision='mixed' NK solve of the Euler
            wing, K2 in its f32 phase only;
-  [19]     the turbulent flat plate of tests/test_solve_rans.py on the
-           card with precision='mixed' and NK, cut in depth to 8e-3 of the
-           free-stream residual: K1 in the f32 phase only, the f64
-           continuation after the handover (converged to 1e-7 against a
-           float64 solve by tools/plate_converged.py).
+  [19]     a turbulent flat plate (16x12, Re 1e4) converged on the card
+           with precision='mixed' and NK: K1 in the f32 phase only, the
+           f64 continuation after the handover; the f64 residual of its
+           answer on the CPU below 1e-7 of the free-stream one, and the
+           answer against a float64 solve on the CPU (a process of its
+           own, run meanwhile).
 Any failed check raises, so the exit code is not 0. The last line is
 ``{"ok": true, "device": {...}}``; the line before it lists the kernels with
 their launches, errors and times (``ms`` by CUDA events around calls of the
@@ -62,8 +63,10 @@ Without a card it exits with 1 and prints no result.
 from __future__ import annotations
 
 import json
+import multiprocessing
 import sys
 import time
+from concurrent.futures import ProcessPoolExecutor
 
 import numpy as np
 import torch
@@ -146,21 +149,27 @@ MIXED = {"precision": "mixed", "useNKSolver": True}
 # 225 s)
 MIXED_WING_OPTS = dict(MIXED, nCycles=60, L2Convergence=1e-5,
                        NKSwitchTol=1e-3, ANKMaxIter=10)
-# [19], the turbulent flat plate of tests/test_solve_rans.py with
-# precision='mixed': cut in depth to 8e-3 of the free-stream residual (the
-# f32 phase to its handover at 1e-2, then the f64 continuation, a few
-# steps); converged to 1e-7 by tools/plate_converged.py (an ANK step of
-# the plate takes 10-30 s on the card, host-bound, and the mixed solve
-# needs more than 1500 s to converge: see PERF.md)
-PLATE = dict(name="tplate", mach=0.2, reynolds=2e6, reynoldsLength=1.0,
-             T=288.15)
-PLATE_MESH = dict(ni=48, nj=48, wall_spacing=2e-5, height=0.5)
-PLATE_OPTS = {"equationType": "RANS", "ANKSwitchTol": 1.5,
-              "L2Convergence": 1e-7, "nCycles": 150,
+# [19], a turbulent plate converged on the card with precision='mixed' and
+# NK: the 16x12 flat plate of the CPU tests at Re 1e4 (the f32 phase
+# through K1 to its handover at 1e-2, then the f64 continuation). Its
+# answer is held to 1e-7 of the free-stream residual by its f64 residual
+# on the CPU, and to a float64 solve of the same plate on the CPU, run in
+# a process of its own meanwhile (cd, mid-plate cf, flow-through
+# functions). The solve goes to 1e-8: the answer is packed back to f32,
+# whose rounding alone leaves an f64 residual of 3e-8 to 5e-8 of the
+# free-stream one (CPU runs). The 48x48 plate of tests/test_solve_rans.py
+# does not converge in this script's time: its steps are host-bound,
+# 10-30 s each on the card (PERF.md).
+PLATE = dict(name="fp", mach=0.3, alpha=0.0, reynolds=1e4,
+             reynoldsLength=1.0, T=300.0)
+PLATE_DIMS = (16, 12)
+PLATE_OPTS = {"equationType": "RANS", "useNKSolver": True,
+              "L2Convergence": 1e-8, "nCycles": 60,
               "printIterations": False, "printTiming": False}
-PLATE_CUT = 8e-3
-CF_RTOL = 0.15          # mid-plate cf against 0.0576 Re_x^-1/5
-PLATE_REF_RTOL = 1e-5   # cd and cf, mixed against float64, both converged
+PLATE_CONV = 1e-7       # the answer's f64 residual, of the free-stream one
+PLATE_REF_CONV = 1e-10  # the float64 reference, converged past the card's
+PLATE_REF_THREADS = 2
+PLATE_RTOL = 1e-5       # cd, cf and flow-through functions, against it
 
 # peak rates for the bound: (device-memory bytes/s, f32 FLOP/s outside the
 # tensor cores), NVIDIA data sheets; the SXM part is the default
@@ -636,7 +645,7 @@ def rans_ank_path():
 
 def ank_breakdown(solver):
     """One ANK step of the main path's final state broken into its pieces
-    (CUDA events), then two ANK steps under torch.profiler; returns K2's
+    (CUDA events), then one ANK step under torch.profiler; returns K2's
     device ms a launch in them."""
     from adflow_torch.solvers import krylov, newton
 
@@ -680,13 +689,7 @@ def ank_breakdown(solver):
           f"matvecs, linres {sols[-1].res_norm / sols[-1].b_norm:.3e}")
 
     step = newton.make_ank_step(fns, opts)
-
-    def two_steps():
-        w = wvec
-        for _ in range(2):
-            w = step(w, cfl, pc).w
-
-    return (profile_device(two_steps, "2 ANK steps",
+    return (profile_device(lambda: step(wvec, cfl, pc), "1 ANK step",
                            "inviscid_residual_kernel"),
             (times["PC build"], times["PC apply"]))
 
@@ -1000,6 +1003,7 @@ def matrix_path(scalar_pc_ms):
     print(f"  peak device memory {peak:.3f} GiB; K1 launches {k1}, K2 "
           f"launches {k2} (expected 0 and 0: no kernel on this path)")
     assert (k1, k2) == (0, 0), (k1, k2)
+    return k1, k2
 
 
 def small_state(device, mesh, ap, options, w0=None):
@@ -1060,7 +1064,8 @@ def small_slice_parity():
     """[18]: the upwind and matrix residuals, one matrix ANK step, the
     plate's flow-through functions and each new BC's ghost fill on the
     card (f32) against the CPU (f64), then a precision='mixed' NK solve of
-    the Euler wing on the card; returns (K1, K2) launches of the mixed
+    the Euler wing on the card; returns the K1 and K2 launches of the
+    upwind and matrix cases (none) and the K2 launches of the mixed
     solve."""
     import dataclasses
 
@@ -1095,7 +1100,10 @@ def small_slice_parity():
     assert launches() == (0, 0), launches()
 
     small_ank_parity(1, MATRIX)
-    assert launches() == (0, 0), launches()
+    k1_small, k2_small = launches()
+    print(f"  upwind and matrix residuals and the matrix ANK step: K1 "
+          f"launches {k1_small}, K2 launches {k2_small} (expected 0 and 0)")
+    assert (k1_small, k2_small) == (0, 0), (k1_small, k2_small)
 
     runs, w0 = [], None
     for device in ("cpu", "cuda:0"):
@@ -1145,7 +1153,7 @@ def small_slice_parity():
           f"expected, f64 phase {k2 - 2 - f32_evals}; K1 {k1}")
     assert info.converged and not info.failed
     assert k2 == 2 + f32_evals and k1 == 0, (k1, k2, f32_evals)
-    return k1, k2
+    return k1_small, k2_small, k2
 
 
 def mixed_phases(info):
@@ -1157,61 +1165,112 @@ def mixed_phases(info):
     return hand, sum(r.res_evals for r in info.steps[:hand])
 
 
-def plate_cf(solver):
-    """Mid-plate skin friction from the first cell off the wall, and the
-    0.0576 Re_x^-1/5 correlation there (tests/test_solve_rans.py)."""
+def plate_solver(device, precision, l2conv):
+    """[19]'s plate on ``device`` with ``precision``, NK on, to ``l2conv``
+    of the free-stream residual, its aero problem set."""
+    from adflow_torch.api.solver import ADFLOW
+    from adflow_torch.core.refstate import AeroProblem
+    from adflow_torch.meshgen.analytic import flatplate_mesh
+
+    solver = ADFLOW(options=dict(PLATE_OPTS, precision=precision,
+                                 L2Convergence=l2conv),
+                    mesh=flatplate_mesh(ni=PLATE_DIMS[0], nj=PLATE_DIMS[1]),
+                    device=device)
+    solver.setAeroProblem(AeroProblem(**PLATE))
+    return solver
+
+
+def plate_answer(solver):
+    """cd, the flow-through functions and the mid-plate skin friction from
+    the first cell off the wall (as tests/test_solve_rans.py takes it)."""
+    out = solver.evalFunctions(solver.curAP, {}, ["cd"] + FLOW_FUNCS)
     w = solver._filled_w()[0].double().cpu()
     xc = solver.metrics_list[0].xc_ext[1:-1, 1:-1, 1:-1].double().cpu()
     wi = w[2:-2, 2:-2, 2:-2]
     i_x = int(torch.argmin((xc[:, 0, 0, 0] - 0.5).abs()))
     u1 = float(wi[i_x, 0, 0, 1] / wi[i_x, 0, 0, 0])
-    mu, u_inf = solver.ref.mu_inf, PLATE["mach"]
-    cf = mu * u1 / float(xc[i_x, 0, 0, 1]) / (0.5 * u_inf ** 2)
-    return cf, 0.0576 * (u_inf * float(xc[i_x, 0, 0, 0]) / mu) ** -0.2
+    out["cf"] = (solver.ref.mu_inf * u1 / float(xc[i_x, 0, 0, 1])
+                 / (0.5 * PLATE["mach"] ** 2))
+    return out
 
 
-def plate_solve(precision, l2conv, monitor=False):
-    """The turbulent plate solved on the card with ``precision`` and NK to
-    ``l2conv`` of the free-stream residual (``monitor``: a line a step):
-    (solver, wall s, (K1, K2) launches, cd, (cf, correlation))."""
-    from adflow_torch.api.solver import ADFLOW
-    from adflow_torch.core.refstate import AeroProblem
-    from adflow_torch.meshgen.analytic import flatplate_mesh
-
-    zero_launches()
-    solver = ADFLOW(options=dict(PLATE_OPTS, precision=precision,
-                                 useNKSolver=True, L2Convergence=l2conv,
-                                 printIterations=monitor),
-                    mesh=flatplate_mesh(**PLATE_MESH))
+def plate_reference():
+    """[19]'s float64 reference on the CPU, run in a process of its own:
+    (answer, free-stream residual norm, R/R0, steps, wall s)."""
+    torch.set_num_threads(PLATE_REF_THREADS)
+    solver = plate_solver("cpu", "float64", PLATE_REF_CONV)
     t0 = time.perf_counter()
-    solver(AeroProblem(**PLATE))
+    solver(solver.curAP)
+    info = solver.solve_info
+    assert info.converged and not info.failed
+    return (plate_answer(solver), info.total_r0,
+            info.total_r_final / info.total_r0, len(info.steps),
+            time.perf_counter() - t0)
+
+
+def residual_norm(solver, states):
+    """The norm of the residual at ``states`` that the Newton driver
+    measures, evaluated by ``solver`` (its device and dtype)."""
+    from adflow_torch.solvers import newton
+
+    solver.setStates(states)
+    fns = newton.build_newton_fns(
+        solver.w_list, solver.metrics_list, solver.topo, solver.cfg,
+        solver.ref, solver.winf, solver.extras_list)
+    return float(torch.linalg.norm(fns.res_flat(fns.packer.pack_w(
+        solver.w_list))))
+
+
+def plate_mixed(reference):
+    """[19]: the plate with precision='mixed' and NK converged on the card,
+    K1 in the f32 phase only; the f64 residual of its answer on the CPU and
+    the answer against ``reference``, the future of ``plate_reference``
+    (started before [18], so that it runs while the card works). Returns
+    the K1 launches."""
+    l2conv = PLATE_OPTS["L2Convergence"]
+    zero_launches()
+    solver = plate_solver("cuda:0", "mixed", l2conv)
+    t0 = time.perf_counter()
+    solver(solver.curAP)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
+    k1, k2 = launches()
     info = solver.solve_info
-    cd = solver.evalFunctions(solver.curAP, {}, ["cd"])["tplate_cd"]
-    cf = plate_cf(solver)
-    kinds = [r.kind for r in info.steps]
-    print(f"  {precision} to {l2conv:g}: {wall:.3f} s, {info.iterations} "
-          f"iterations ({kinds.count('ANK')} ANK, {kinds.count('NK')} NK "
-          f"steps), R/R0 {info.total_r_final / info.total_r0:.3e}, "
-          f"converged {info.converged}; cd {cd!r}; mid-plate cf {cf[0]!r}, "
-          f"correlation {cf[1]!r} ({cf[0] / cf[1] - 1.0:+.4f}); K1, K2 "
-          f"launches {launches()}")
+    hand, f32_evals = mixed_phases(info)
+    got = plate_answer(solver)
+    print(f"  plate {'x'.join(map(str, PLATE_DIMS))}, Re "
+          f"{PLATE['reynolds']:g}, precision='mixed' on the card: "
+          f"{wall:.3f} s, {len(info.steps)} steps ({hand} f32, "
+          f"{len(info.steps) - hand} f64; "
+          f"{[r.kind for r in info.steps].count('NK')} NK), R/R0 "
+          f"{info.total_r_final / info.total_r0:.3e}, converged "
+          f"{info.converged}; handover to f64 after step {hand}; K1 "
+          f"launches {k1}: f32 phase {2 + f32_evals} expected, f64 "
+          f"phase {k1 - 2 - f32_evals}; K2 {k2}")
     assert info.converged and not info.failed
     assert info.total_r_final < l2conv * info.total_r0
-    return solver, wall, launches(), cd, cf
-
-
-def plate_mixed(l2conv=PLATE_CUT, monitor=False):
-    """[19]: the turbulent plate with precision='mixed' and NK on the card
-    to ``l2conv``: K1 in the f32 phase only, the f64 continuation after
-    the handover; returns the K1 launches, cd and (cf, correlation)."""
-    solver, _, (k1, k2), cd, cf = plate_solve("mixed", l2conv, monitor)
-    hand, f32_evals = mixed_phases(solver.solve_info)
-    print(f"  handover to f64 after step {hand}; K1 launches {k1}: f32 "
-          f"phase {2 + f32_evals} expected, f64 phase {k1 - 2 - f32_evals}")
     assert k1 == 2 + f32_evals > 2 and k2 == 0, (k1, k2, f32_evals)
-    return k1, cd, cf
+    want, r_free, ref_drop, ref_steps, ref_wall = reference.result()
+    print(f"  float64 on the CPU (a process of its own, "
+          f"{PLATE_REF_THREADS} threads): {ref_wall:.3f} s, {ref_steps} "
+          f"steps, R/R0 {ref_drop:.3e}")
+    r_ans = residual_norm(plate_solver("cpu", "float64", l2conv),
+                          solver.getStates().double().cpu())
+    print(f"  the card's answer, its f64 residual on the CPU: "
+          f"{r_ans / r_free:.3e} of the free-stream residual (tolerance "
+          f"{PLATE_CONV:g})")
+    assert r_ans < PLATE_CONV * r_free
+    worst = 0.0
+    for key in want:
+        err = abs(got[key] - want[key]) / abs(want[key])
+        worst = max(worst, err)
+        print(f"    {key}: card {got[key]!r}, CPU float64 {want[key]!r}, "
+              f"rel {err:.3e}")
+    print(f"  card (mixed) against CPU (float64): rel {worst:.3e} "
+          f"(tolerance {PLATE_RTOL:g})")
+    assert len(got) == len(want) == len(FLOW_FUNCS) + 2
+    assert worst < PLATE_RTOL
+    return k1
 
 
 def kernel_times(label, fused, plain, tensors, consts, n_bytes, n_flop,
@@ -1400,16 +1459,21 @@ def main() -> int:
     phase("[17] the slice at full width: matrix dissipation on the "
           f"{'x'.join(map(str, FULL_DIMS))} Euler wing, {MATRIX_STEPS} ANK "
           "steps, no kernel")
-    matrix_path(scalar_pc_ms)
+    k1_matrix, k2_matrix = matrix_path(scalar_pc_ms)
 
-    phase("[18] small cases, card against CPU: upwind and matrix residuals, "
-          "a matrix ANK step, flow-through functions, the new BCs, a mixed "
-          "NK solve")
-    _, k2_mixed = small_slice_parity()
+    # [19]'s float64 reference on the CPU, in a process of its own that
+    # runs while the card works through [18] and [19]
+    with ProcessPoolExecutor(
+            1, mp_context=multiprocessing.get_context("spawn")) as pool:
+        reference = pool.submit(plate_reference)
+        phase("[18] small cases, card against CPU: upwind and matrix "
+              "residuals, a matrix ANK step, flow-through functions, the new "
+              "BCs, a mixed NK solve")
+        k1_small, k2_small, k2_mixed = small_slice_parity()
 
-    phase("[19] the turbulent plate on the card: precision 'mixed' with "
-          f"NK, to {PLATE_CUT:g} of the free-stream residual")
-    k1_plate, _, _ = plate_mixed()
+        phase("[19] a turbulent plate converged on the card: precision "
+              "'mixed' with NK, against a float64 solve on the CPU")
+        k1_plate = plate_mixed(reference)
     phase()
     print(f"total wall time {time.perf_counter() - t_start:.1f} s")
 
@@ -1419,11 +1483,14 @@ def main() -> int:
          "source": "adflow_torch/csrc/rans_residual.cu",
          "replaces": "adflow_tpu/ops/pallas_rans.py:58",
          "design": "one pass, i-march",
-         "launches": k1_rk + k1_ank + k1_adj + k1_plate,
+         "launches": (k1_rk + k1_ank + k1_adj + k1_matrix + k1_small
+                      + k1_plate),
          "launches_by_path": {"rk_rans_wing_256x64x64": k1_rk,
                               "ank_rans_wing_64x24x16": k1_ank,
                               "adjoint_rans_wing_16x8x8": k1_adj,
-                              "mixed_rans_plate_48x48": k1_plate},
+                              "matrix_euler_wing_256x64x64": k1_matrix,
+                              "upwind_matrix_wing_16x8x8": k1_small,
+                              "mixed_rans_plate_16x12": k1_plate},
          "max_abs_err": max_abs, "max_rel_err": flux_rel,
          "max_rel_err_of_residual": max_rel, **k1_times,
          "library_ms": None},
@@ -1431,12 +1498,14 @@ def main() -> int:
          "source": "adflow_torch/csrc/inviscid_residual.cu",
          "replaces": "adflow_tpu/ops/pallas_residual.py:45",
          "design": "one pass, i-march",
-         "launches": k2_ank + k2_adj + k2_full_adj + k2_mixed,
+         "launches": (k2_ank + k2_adj + k2_full_adj + k2_matrix + k2_small
+                      + k2_mixed),
          "launches_by_path": {"ank_euler_wing_256x64x64": k2_ank,
                               "adjoint_euler_wing_16x8x8": k2_adj,
                               "adjoint_euler_wing_256x64x64": k2_full_adj,
-                              "mixed_euler_wing_16x8x8": k2_mixed,
-                              "matrix_euler_wing_256x64x64": 0},
+                              "matrix_euler_wing_256x64x64": k2_matrix,
+                              "upwind_matrix_wing_16x8x8": k2_small,
+                              "mixed_euler_wing_16x8x8": k2_mixed},
          "max_abs_err": k2_abs, "max_rel_err": k2_flux_rel, **k2_times,
          "library_ms": None},
     ]}))

@@ -10,8 +10,8 @@ type takes them), at a seeded perturbed free stream:
 - the residual's jvp and vjp (``res_flat``, halo fill included) on two
   channels whose imin faces carry four and five inflow types (the second
   slow) and whose imax faces carry the four outflow types, to 1e-10;
-- the adjoint's residual vjp in w, x and the design variables on the
-  channel (total-conditions inflow) to 1e-10; where the JAX package takes
+- slow: the adjoint's residual vjp in w, x and the design variables on
+  the channel (total-conditions inflow) to 1e-10; where the JAX package takes
   ``float()`` of the free stream (the prescribed-state inflow) and so raises
   under a derivative in the design variables, the port's jvp in mach
   against a central difference of the JAX residual, to 1e-8;
@@ -196,9 +196,14 @@ def test_residual_derivatives_match_jax(jit):
     assert rel(vj_j, vj_t.numpy()) < DERIV_TOL
 
 
+@pytest.mark.slow
 def test_channel_adjoint_vjp_matches_jax():
     """Total-conditions inflow: the free stream's derivatives reach the
-    ghosts through ``winf`` (turbulence) and the totals' defaults."""
+    ghosts through ``winf`` (turbulence) and the totals' defaults. Slow
+    (7 s on one CPU worker, most of it the JAX package's compile): the
+    fast tier holds the BCs' vjp in w in ``test_residual_derivatives_match_jax``
+    and a derivative in the flow conditions in
+    ``test_free_stream_derivative_kept``."""
     check_residual_vjp(*_pair(), jit=True)
 
 

@@ -8,8 +8,8 @@ state:
   1e-12, float32 kept in float32;
 - ``build_line_pc``'s split: the port's factors of (L, D, U) against those
   of the JAX package's (L, D, U) carried across with
-  ``interop.line_pc_from_numpy``, to 1e-12; one PC apply to 1e-10; the
-  transposed apply <M^-1 u, v> = <u, M^-T v> to 1e-12;
+  ``interop.line_pc_from_numpy``, to 1e-12 (the matrix case slow); one PC
+  apply to 1e-10; the transposed apply <M^-1 u, v> = <u, M^-T v> to 1e-12;
 - slow: one ANK step with matrix dissipation and one with upwind (Roe,
   van Albada) through ``torch_pairs.check_ank_step``, stats to 1e-10;
 - the adjoint through matrix dissipation: the residual's vjp in w, x and
@@ -55,8 +55,11 @@ def test_abs_flux_jacobians_match_jax():
     assert rel(want, got32.numpy()) < 1e-5
 
 
-@pytest.fixture(scope="module", params=["matrix", "upwind"])
+@pytest.fixture(scope="module", params=[
+    pytest.param("matrix", marks=pytest.mark.slow), "upwind"])
 def pair(request):
+    """Both discretizations take the split; the matrix case is slow (its
+    split test takes 28 s on one CPU worker with the pair's set-up)."""
     return newton_pair("euler_wing",
                        **(MATRIX if request.param == "matrix" else UPWIND))
 

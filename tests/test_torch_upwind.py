@@ -81,12 +81,16 @@ def test_residual_matches_jax(wing, disc, rs, lim):
 
 
 @pytest.mark.parametrize("disc,rs,lim", [
-    VARIANTS[0], VARIANTS[6], VARIANTS[-1]])
+    pytest.param(*VARIANTS[0], marks=pytest.mark.slow), VARIANTS[6],
+    pytest.param(*VARIANTS[-1], marks=pytest.mark.slow)])
 def test_jvp_and_vjp_match_jax(wing, disc, rs, lim):
     """The block residual's jvp and vjp in the padded state from seeded
     directions (the halo fill's are held in tests/test_torch_bc_flow.py),
     the JAX side under one ``jax.jit``: its eager derivatives take 10-40 s
-    a case. Not minmod: compiled, XLA's rounding flips its near-ties
+    a case. Roe with van Albada and matrix dissipation are slow (10-12 s
+    each on one CPU worker, most of it the JAX package's compile); the
+    matrix residual's vjp stays in the fast tier in
+    tests/test_torch_matrix_pc.py. Not minmod: compiled, XLA's rounding flips its near-ties
     |a| < |b| and moves the JAX jvp past the tolerance, where the port
     agrees with the op-by-op JAX jvp (as at the JST sensor's kink,
     tests/torch_pairs.py)."""

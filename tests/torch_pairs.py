@@ -39,9 +39,11 @@ CASES = {
 }
 
 
-def solvers(case, **options):
-    """(JAX solver, port solver) with the case's aero problem set."""
+def solvers(case, ap_changes=None, **options):
+    """(JAX solver, port solver) with the case's aero problem, changed by
+    ``ap_changes``, set."""
     opts, ap, mesh_fn, mesh_kw = CASES[case]
+    ap = dict(ap, **(ap_changes or {}))
     opts = dict(opts, **QUIET, **options)
     js = JaxADFLOW(options=opts,
                    mesh=getattr(jax_meshgen, mesh_fn)(**mesh_kw))
