@@ -22,8 +22,17 @@ of their own so that their derivatives are kept.
 
 The wall distance is frozen with respect to x, as in the JAX package.
 
-Not ported: the multigrid adjoint PC (ROADMAP.md queue 1 item 10), the
-grid-motion design variables rotRate, rotCenter and machGrid (item 9), and
+With grid motion, the rigid-motion face velocities are rebuilt from the
+design variables rotRate (rad/s over a_inf, as the primal attaches it),
+rotCenter and machGrid, as the JAX package rebuilds them.
+
+With SST the traced free stream carries k_inf and omega_inf rebuilt from
+mach and mu_inf as ``make_reference_state`` builds them. The JAX
+package's ``traced_winf`` appends nu_tilde_inf and 1.0 there instead, so
+its adjoint linearizes a residual whose far-field ghosts differ from the
+one its primal solved; the port linearizes the primal's residual.
+
+Not ported: the multigrid adjoint PC (ROADMAP.md queue 1 item 10), and
 user surfaces, overset iblank, the zipper, patch weights and cp targets
 (item 11).
 """
@@ -38,7 +47,7 @@ import numpy as np
 import torch
 
 from adflow_torch.core.refstate import GAMMA, ReferenceState
-from adflow_torch.geom.metrics import compute_metrics_conn
+from adflow_torch.geom.metrics import add_grid_motion, compute_metrics_conn
 from adflow_torch.physics.residual import fill_halos, residual_list
 from adflow_torch.physics.surface import cost_functions, integrate_forces
 from adflow_torch.solvers.krylov import GmresResult, gmres
@@ -85,6 +94,15 @@ def traced_reference_state(base: ReferenceState, params) -> ReferenceState:
         extra["p_ref_dim"] = GAMMA * params["P"]
     if "xref" in params:
         extra["moment_ref"] = params["xref"]
+    if base.n_turb == 2:
+        # the SST free stream of make_reference_state: k = 1.5 (I M)^2,
+        # omega = k / (mu_inf eddyVisInfRatio), the ratio recovered from
+        # the base state
+        k_inf = 1.5 * (1e-3 * mach) ** 2
+        extra["k_inf"] = k_inf
+        extra["omega_inf"] = (
+            k_inf / (mu_inf * (base.k_inf / (base.mu_inf * base.omega_inf)))
+            if base.mu_inf > 0 else base.omega_inf)
     return dataclasses.replace(
         base, u_inf=mach * vel_dir, mu_inf=mu_inf,
         nu_tilde_inf=3.0 * mu_inf, vel_dir=vel_dir, drag_dir=vel_dir,
@@ -92,15 +110,16 @@ def traced_reference_state(base: ReferenceState, params) -> ReferenceState:
 
 
 def traced_winf(ref: ReferenceState):
-    """The conservative free stream of a traced reference state (the
-    solver refuses SST, so at most one turbulence variable, SA's)."""
+    """The conservative free stream of a traced reference state: SA's
+    nuTilde, or SST's k and omega, as ``ReferenceState.winf``."""
     vel = ref.u_inf
     rho_e = ref.p_inf / (GAMMA - 1.0) + 0.5 * torch.sum(vel * vel)
     parts = [torch.ones(1, dtype=vel.dtype, device=vel.device), vel,
              rho_e[None]]
-    if ref.n_turb >= 1:
-        parts.append(torch.as_tensor(ref.nu_tilde_inf, dtype=vel.dtype,
-                                     device=vel.device).reshape(1))
+    turb = {1: ("nu_tilde_inf",), 2: ("k_inf", "omega_inf")}.get(
+        ref.n_turb, ())
+    parts += [torch.as_tensor(getattr(ref, f), dtype=vel.dtype,
+                              device=vel.device).reshape(1) for f in turb]
     return torch.cat(parts)
 
 
@@ -134,13 +153,19 @@ def build_adjoint_fns(solver) -> AdjointFns:
                 for i, s in enumerate(x_shapes)]
 
     def _prep(wvec, xvec, params):
-        if "rotRate" in params or "machGrid" in params:
-            raise _todo("the grid-motion design variables rotRate, "
-                        "rotCenter and machGrid", "9")
         ref = traced_reference_state(base_ref, params)
         winf = traced_winf(ref).to(dtype)
         x_list = unpack_x(xvec)
         metrics_list = compute_metrics_conn(mesh_blocks, x_list)
+        if "rotRate" in params or "machGrid" in params:
+            # the primal's rigid grid motion (setAeroProblem) as functions
+            # of the design variables, rotRate already over a_inf
+            zero3 = torch.zeros(3, dtype=dtype, device=wvec.device)
+            vt = -params.get("machGrid", zero3[0]) * ref.vel_dir
+            metrics_list = [
+                add_grid_motion(m, x, params.get("rotRate", zero3),
+                                params.get("rotCenter", zero3), vt)
+                for m, x in zip(metrics_list, x_list)]
         # the interior written into a free-stream template of each block
         w_list = packer.unpack_into(wvec, [winf.expand(s)
                                            for s in pad_shapes])

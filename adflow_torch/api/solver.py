@@ -16,6 +16,7 @@ ported yet raises ``NotImplementedError`` naming its ROADMAP.md item.
 
 from __future__ import annotations
 
+import dataclasses
 import time
 from typing import Dict, List, Optional, Sequence
 
@@ -137,6 +138,7 @@ class ADFLOW:
                        for b in mesh.blocks]
         # true ghost metrics at b2b faces (xhalo analogue, metrics.py)
         self.metrics_list = compute_metrics_conn(mesh.blocks, self.x_list)
+        self._metrics_base = list(self.metrics_list)
         self._check_volumes()
 
         opt = self.options
@@ -196,16 +198,6 @@ class ADFLOW:
             raise _todo("meshDevices > 1", "12")
         if opt["restartFile"]:
             raise _todo("restart files", "13")
-        if bool(opt["useWallFunctions"]):
-            raise _todo("wall functions", "9")
-        if bool(opt["lowSpeedPreconditioner"]):
-            raise _todo("the low-speed preconditioner", "9")
-        if bool(opt["useQCR"]) or bool(opt["useRotationSA"]):
-            raise _todo("QCR and rotation-SA", "9")
-        if opt["turbulenceModel"].lower() != "sa":
-            raise _todo(f"turbulence model {opt['turbulenceModel']!r}", "9")
-        if str(opt["turbulenceOrder"]).replace(" ", "").lower() != "firstorder":
-            raise _todo("second-order turbulence advection", "9")
         if opt["smoother"].lower().startswith("dadi"):
             raise _todo("the DADI smoother", "10")
 
@@ -229,9 +221,6 @@ class ADFLOW:
         """Reference: pyADflow.setAeroProblem:3240 (state stash per AP)."""
         if self.curAP is ap:
             return
-        if getattr(ap, "rotRate", None) is not None or float(
-                getattr(ap, "machGrid", 0.0) or 0.0) != 0.0:
-            raise _todo("grid motion (rotRate / machGrid)", "9")
         if self.curAP is not None and self.w_list is not None:
             self._ap_states[self.curAP.name] = self.w_list
             self._ap_winfs[self.curAP.name] = getattr(
@@ -241,8 +230,17 @@ class ADFLOW:
             ap, lift_index=int(self.options["liftIndex"]),
             n_turb=self.cfg.n_turb,
             eddy_vis_inf_ratio=float(self.options["eddyVisInfRatio"]))
+        if bool(self.options["useWallFunctions"]) and self.cfg.viscous:
+            # the wall-function wall treatment (computeUtau; physics/bc.py)
+            self.ref = dataclasses.replace(self.ref, wall_fn=True)
+        if bool(self.options["lowSpeedPreconditioner"]):
+            # the Weiss-Smith beta^2 cutoff at the problem's free-stream
+            # Mach (residuals.F90:172)
+            self.cfg = dataclasses.replace(self.cfg,
+                                           ls_precon_mach=float(ap.mach))
         self.winf = torch.as_tensor(self.ref.winf(), dtype=self.dtype,
                                     device=self.device)
+        self._attach_grid_motion(ap)
         if ap.name in self._ap_states:
             self.w_list = self._ap_states[ap.name]
             self._state_winf = self._ap_winfs.get(
@@ -250,6 +248,25 @@ class ADFLOW:
         else:
             self.resetFlow(ap)
         self._inf_change_correction()
+
+    def _attach_grid_motion(self, ap: AeroProblem):
+        """Rigid grid motion from the problem's rotation rate and centre and
+        its machGrid (reference gridVelocitiesFineLevel, solverUtils.F90:358
+        and :414): ALE face velocities on the metrics, the rate made
+        nondimensional by a_inf (the grid is in metres) and the translation
+        -machGrid along the free-stream direction. The f64 metrics of
+        precision='mixed' stay static, as in the JAX package."""
+        mach_grid = float(getattr(ap, "machGrid", 0.0) or 0.0)
+        if getattr(ap, "rotRate", None) is None and mach_grid == 0.0:
+            self.metrics_list = list(self._metrics_base)
+            return
+        from adflow_torch.geom.metrics import add_grid_motion
+        om = (np.asarray(ap.rotRate, float) / ap.a_dim
+              if ap.rotRate is not None else np.zeros(3))
+        vtrans = -mach_grid * np.asarray(self.ref.vel_dir, float)
+        self.metrics_list = [
+            add_grid_motion(m, x, om, ap.rotCenter, vtrans)
+            for m, x in zip(self._metrics_base, self.x_list)]
 
     def resetFlow(self, ap: Optional[AeroProblem] = None):
         """Free-stream initialization (reference: initFlow,
@@ -416,6 +433,56 @@ class ADFLOW:
         if want >= 2:
             raise _todo("the full-multigrid start", "10")
 
+    def addActuatorRegion(self, axis1, axis2, radius: float,
+                          familyName: str = "actuator",
+                          thrust: float = 0.0, torque: float = 0.0):
+        """A cylindrical actuator volume from ``axis1`` to ``axis2`` of
+        ``radius``, adding distributed momentum sources: the thrust along
+        the axis, uniform per volume, and the torque as a tangential force
+        per volume proportional to the radius (reference
+        pyADflow.addActuatorRegion:831, actuatorRegion.F90; the reference
+        takes a closed surface, this the common propeller-disk cylinder).
+        The energy row f . u is added at each residual evaluation
+        (``physics/residual.py``). Host (numpy) work, once."""
+        from adflow_torch.geom.metrics import cell_centers
+        axis1 = np.asarray(axis1, float)
+        axvec = np.asarray(axis2, float) - axis1
+        length = float(np.linalg.norm(axvec))
+        axhat = axvec / max(length, 1e-30)
+        if self.extras_list is None:
+            self.extras_list = [{} for _ in self.mesh.blocks]
+        geo = []
+        vol_tot = 0.0
+        for x, m in zip(self.x_list, self.metrics_list):
+            rel = cell_centers(x).double().cpu().numpy() - axis1
+            t = rel @ axhat
+            rvec = rel - t[..., None] * axhat
+            rad = np.linalg.norm(rvec, axis=-1)
+            mask = (t >= 0.0) & (t <= length) & (rad <= radius)
+            vol = m.vol[2:-2, 2:-2, 2:-2].double().cpu().numpy()
+            geo.append((mask, vol, rvec))
+            vol_tot += float(vol[mask].sum())
+        if vol_tot <= 0.0:
+            raise ValueError("actuator region captures no cells")
+        for bi, (mask, vol, rvec) in enumerate(geo):
+            src = np.zeros(vol.shape + (5,))
+            src[..., 1:4] = mask[..., None] * (thrust / vol_tot * axhat) \
+                * vol[..., None]
+            if torque != 0.0:
+                rad = np.maximum(np.linalg.norm(rvec, axis=-1), 1e-12)
+                that = np.cross(np.broadcast_to(axhat, rvec.shape), rvec)
+                that /= np.maximum(
+                    np.linalg.norm(that, axis=-1, keepdims=True), 1e-30)
+                # torque = sum f_t r V with f_t proportional to r
+                f_t = torque / max(float((rad * vol * rad)[mask].sum()),
+                                   1e-30)
+                src[..., 1:4] += (mask[..., None] * (f_t * rad)[..., None]
+                                  * that * vol[..., None])
+            ex = dict(self.extras_list[bi])
+            ex["act_src_momentum"] = torch.as_tensor(
+                src, dtype=self.dtype, device=self.device)
+            self.extras_list[bi] = ex
+
     def addUserSurface(self, *args, **kwargs):
         raise _todo("user surfaces", "11")
 
@@ -515,8 +582,8 @@ class ADFLOW:
     def _ap_params(self, ap: AeroProblem):
         """The design variables as 0-d tensors (the reference's extra-DV
         map alpha/beta/mach, P, T, Re and the reference point,
-        pyADflow.py:6444-6461). The grid-motion variables are refused by
-        ``setAeroProblem``."""
+        pyADflow.py:6444-6461), and with grid motion rotRate (over a_inf,
+        as the primal attaches it), rotCenter and machGrid."""
         kw = dict(dtype=self.dtype, device=self.device)
         out = {k: torch.tensor(v, **kw) for k, v in (
             ("alpha", ap.alpha), ("beta", ap.beta), ("mach", ap.mach),
@@ -524,6 +591,12 @@ class ADFLOW:
             ("xref", [ap.xRef, ap.yRef, ap.zRef]))}
         if ap.reynolds and ap.reynolds > 0:
             out["reynolds"] = torch.tensor(ap.reynolds, **kw)
+        if getattr(ap, "rotRate", None) is not None:
+            out["rotRate"] = torch.tensor(
+                np.asarray(ap.rotRate, float) / ap.a_dim, **kw)
+            out["rotCenter"] = torch.tensor(ap.rotCenter, **kw)
+        if float(getattr(ap, "machGrid", 0.0) or 0.0) != 0.0:
+            out["machGrid"] = torch.tensor(ap.machGrid, **kw)
         return out
 
     def _wx_vecs(self):
@@ -599,6 +672,14 @@ class ADFLOW:
             sens["rho"] = R_GAS * ap.T * sens["P"]
             if "reynolds" in params:
                 sens["reynolds"] = float(tot["reynolds"])
+            if "rotRate" in params:
+                # taken in the rate over a_inf; reported per rad/s. The
+                # concrete a_dim leaves out d(omega)/dT, as in the JAX
+                # package
+                sens["rotRate"] = tot["rotRate"].cpu().numpy() / ap.a_dim
+                sens["rotCenter"] = tot["rotCenter"].cpu().numpy()
+            if "machGrid" in params:
+                sens["machGrid"] = float(tot["machGrid"])
             funcsSens[f"{ap.name}_{name}"] = sens
         return funcsSens
 

@@ -26,8 +26,9 @@ class BlockMetrics(NamedTuple):
     vol: (ni+4, nj+4, nk+4) cell volumes, halo layers mirrored
     xc_ext: (ni+2, nj+2, nk+2, 3) cell centers on the one-ring extended
         grid; ghost centers mirrored across face centers
-    vfIE/vfJE/vfKE: ALE face velocities; always None in this port (static
-        meshes only).
+    vfIE/vfJE/vfKE: ALE grid-face velocity vectors on the same extended
+        grids as siE/sjE/skE (``add_grid_motion``), or None for a static
+        mesh; the fluxes use the normal face speed vf . S.
     """
 
     siE: torch.Tensor
@@ -54,15 +55,15 @@ class BlockMetrics(NamedTuple):
 
     @property
     def vfI(self):
-        return None
+        return None if self.vfIE is None else self.vfIE[1:-1, 1:-1, 1:-1]
 
     @property
     def vfJ(self):
-        return None
+        return None if self.vfJE is None else self.vfJE[1:-1, 1:-1, 1:-1]
 
     @property
     def vfK(self):
-        return None
+        return None if self.vfKE is None else self.vfKE[1:-1, 1:-1, 1:-1]
 
 
 def pad_like_numpy(a: torch.Tensor, width: int, mode: str, axes=(0, 1, 2)):
@@ -153,6 +154,37 @@ def compute_metrics(x: torch.Tensor) -> BlockMetrics:
         sjE=pad_like_numpy(sj, 1, "edge"),
         skE=pad_like_numpy(sk, 1, "edge"),
         vol=vol, xc_ext=_cell_centers_ext(x))
+
+
+def rigid_velocity(points, omega, center, vtrans):
+    """v(x) = omega x (x - center) + vtrans for rigid-body grid motion
+    (reference gridVelocitiesFineLevel, solverUtils.F90:358). ``omega``,
+    ``center`` and ``vtrans`` are 3-vectors: sequences or tensors (the
+    adjoint's design variables), kept in the graph."""
+    kw = dict(dtype=points.dtype, device=points.device)
+    om = torch.as_tensor(omega, **kw)
+    c = torch.as_tensor(center, **kw)
+    vt = torch.as_tensor(vtrans, **kw)
+    return torch.linalg.cross(om.expand(points.shape), points - c,
+                              dim=-1) + vt
+
+
+def add_grid_motion(metrics: BlockMetrics, x: torch.Tensor, omega,
+                    center=(0.0, 0.0, 0.0), vtrans=(0.0, 0.0, 0.0)
+                    ) -> BlockMetrics:
+    """Attach rigid-motion face velocities to a block's metrics.
+
+    Face velocities are evaluated at face centroids (the points the volume
+    formula integrates), so for rigid motion the discrete velocity
+    divergence telescopes to round-off per cell and the free stream is
+    preserved (the ALE GCL, reference src/solver/ALEUtils.F90).
+    """
+    def vf(xm):
+        return pad_like_numpy(rigid_velocity(xm, omega, center, vtrans), 1,
+                              "edge")
+
+    xmi, xmj, xmk = face_centers(x)
+    return metrics._replace(vfIE=vf(xmi), vfJE=vf(xmj), vfKE=vf(xmk))
 
 
 # ---------------------------------------------------------------------------

@@ -7,11 +7,11 @@ halos where they touch block edges so corner halos get filled by sequential
 application. ``apply_bcs`` copies the padded state once and writes the ghost
 layers of the copy, so the caller's tensor is never modified.
 
-Every branch of the JAX package's ``_ghost_state`` is ported, on static
-meshes without wall functions (ROADMAP.md queue 1 item 9); overset faces
-are item 11. Where the JAX package takes ``float()`` of the free stream
-(the mass-flow inflow, the prescribed-state inflow with data and
-DOMAIN_INTERFACE_RHO), it cannot trace them: under ``jax.jit`` or a
+Every branch of the JAX package's ``_ghost_state`` is ported, with the
+moving walls of ALE grid motion and the wall functions (Spalding's law);
+overset faces are item 11. Where the JAX package takes ``float()`` of the
+free stream (the mass-flow inflow, the prescribed-state inflow with data
+and DOMAIN_INTERFACE_RHO), it cannot trace them: under ``jax.jit`` or a
 derivative in the flow conditions ``float()`` of the traced free stream
 raises. The port keeps the free stream a tensor there: a ``float()`` under
 ``torch.func`` would drop its derivative silently, and a host copy would
@@ -21,6 +21,7 @@ stall the card at every fill. The values are the same.
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -28,7 +29,9 @@ import torch
 
 from adflow_torch.core.mesh import BCType, Block
 from adflow_torch.core.refstate import GAMMA, ReferenceState
-from adflow_torch.physics.thermo import IMX, IMZ, IRHO, IRHOE, ITURB, pressure
+from adflow_torch.physics.fluxes import _clip, _max, _min
+from adflow_torch.physics.thermo import (
+    IMX, IMZ, IRHO, IRHOE, ITURB, laminar_viscosity, pressure)
 
 H = 2  # halo depth
 
@@ -125,6 +128,33 @@ def _outward_normals(metrics, op: BCOp):
     return n / torch.clamp(mag, min=1e-30)
 
 
+def _face_velocity(metrics, op: BCOp):
+    """The ALE wall velocity over the (extended) subface, or None on a
+    static mesh (reference BCData%uSlip from gridVelocitiesFineLevel)."""
+    vf = (metrics.vfI, metrics.vfJ, metrics.vfK)[op.axis]
+    return None if vf is None else _edge_pad2(vf[op.face_sl], op.pad)
+
+
+def _wall_aux(metrics, op: BCOp, ref: ReferenceState):
+    """Per-subface wall data for ``_ghost_state``: the wall velocity
+    ``uwall`` of a moving wall, and with wall functions on a viscous wall
+    the first-cell height ``dn`` = V1 / |S| (computeUtau). The JAX package
+    computes ``dn`` on SST walls too, for a wall omega value it never
+    uses; so it is computed here only where wall functions read it."""
+    aux = {}
+    if op.bc in (BCType.EULER_WALL, BCType.NS_WALL_ADIABATIC,
+                 BCType.NS_WALL_ISOTHERMAL):
+        uw = _face_velocity(metrics, op)
+        if uw is not None:
+            aux["uwall"] = uw
+    if ref.wall_fn and op.bc in (BCType.NS_WALL_ADIABATIC,
+                                 BCType.NS_WALL_ISOTHERMAL):
+        s = (metrics.si, metrics.sj, metrics.sk)[op.axis]
+        smag = _edge_pad2(torch.linalg.norm(s[op.face_sl], dim=-1), op.pad)
+        aux["dn"] = metrics.vol[op.mirror[0]] / _max(smag, 1e-30)
+    return aux
+
+
 def _records(w, metrics, ref: ReferenceState, winf) -> bool:
     """Whether autograd records the ghost states: grad mode on and any of
     their inputs requiring grad (reverse mode, the adjoint's vjp in w, x or
@@ -147,17 +177,82 @@ def apply_bcs(w, metrics, ops: Sequence[BCOp], ref: ReferenceState, winf):
         if op.bc is BCType.B2B_MATCH:
             continue
         nhat = _outward_normals(metrics, op)
+        aux = _wall_aux(metrics, op, ref)
         for d in range(H):
             mirror = w[op.mirror[d]]
             w[op.ghost[d]] = _ghost_state(
-                op, mirror.clone() if copy else mirror, nhat, ref, winf)
+                op, mirror.clone() if copy else mirror, nhat, ref, winf,
+                aux=aux)
     return w
 
 
-def _reflect_momentum(wi, nhat):
-    m = wi[..., IMX:IMZ + 1]
+def _reflect_momentum(m, nhat):
     mn = torch.sum(m * nhat, dim=-1, keepdim=True)
     return m - 2.0 * mn * nhat
+
+
+KARMAN_WF = 0.41
+B_WF = 5.25
+
+
+def spalding_utau(umag, d1, nu, n_iter: int = 30):
+    """Friction velocity from Spalding's law of the wall,
+    y+ = u+ + e^{-kB} (e^{k u+} - 1 - k u+ - (k u+)^2/2 - (k u+)^3/6),
+    solved in u+ by a fixed number of Newton iterations on
+    h(u+) = u+ y+(u+) - Re_d, Re_d = |u| d1 / nu (the reference's curve
+    fits, turbCurveFits.F90; computeUtau, solverUtils.F90:2483)."""
+    k = KARMAN_WF
+    ekb = math.exp(-k * B_WF)
+    umag = _max(umag, 1e-12)
+    red = umag * _max(d1, 1e-30) / nu
+
+    def spald(up):
+        kup = _min(k * up, 50.0)
+        return up + ekb * (torch.exp(kup) - 1.0 - kup - kup ** 2 / 2.0
+                           - kup ** 3 / 6.0)
+
+    def dspald(up):
+        kup = _min(k * up, 50.0)
+        return 1.0 + ekb * (k * torch.exp(kup) - k - k * kup
+                            - k * kup ** 2 / 2.0)
+
+    up = _min(torch.sqrt(red), 40.0)
+    for _ in range(n_iter):
+        h = up * spald(up) - red
+        dh = spald(up) + up * dspald(up)
+        up = _clip(up - h / dh, 1e-8, 200.0)
+    return umag / up
+
+
+def _wall_fn_ghost_momentum(wi, nhat, ref: ReferenceState, dn):
+    """Ghost momentum of a viscous wall with wall functions: the tangential
+    ghost velocity is scaled so the wall-face gradient delivers
+    tau_w = rho u_tau^2 from Spalding's law; in the resolved limit beta ->
+    1 recovers the no-slip mirror. Returns (momentum, u_tau, d1) for the
+    SA wall anchor.
+
+    The ghost scaling is calibrated against the face viscosity mu +
+    0.5 mu_t with SA's mu_t whenever the state carries turbulence, so with
+    SST it reads k as nuTilde, as the JAX package does. |u_t| is
+    ``torch.linalg.norm``, whose derivative at a zero vector is 0 where
+    the jvp of ``jnp.linalg.norm`` is NaN: at a cell with no tangential
+    velocity the port's derivatives stay finite."""
+    from adflow_torch.physics.sa import eddy_viscosity
+    rho = wi[..., IRHO]
+    v = wi[..., IMX:IMZ + 1] / rho[..., None]
+    vn = torch.sum(v * nhat, dim=-1, keepdim=True) * nhat
+    vt = v - vn
+    vt_mag = torch.linalg.norm(vt, dim=-1)
+    mu = laminar_viscosity(GAMMA * pressure(wi) / rho, ref.mu_inf,
+                           ref.t_inf_dim)
+    d1 = _max(0.5 * dn, 1e-12)
+    ut = spalding_utau(vt_mag, d1, mu / rho)
+    mu_face = mu + 0.5 * eddy_viscosity(wi, mu) if wi.shape[-1] > ITURB \
+        else mu
+    beta = rho * ut ** 2 * d1 / (mu_face * _max(vt_mag, 1e-12))
+    beta = torch.maximum(beta, mu / mu_face)   # resolved: no-slip mirror
+    vg = v - vn - 2.0 * beta[..., None] * vt - vn
+    return rho[..., None] * vg, ut, d1
 
 
 def _data_field(op: BCOp, key: str, default, like):
@@ -198,22 +293,49 @@ def _with_turb(out, wi, turb):
     return torch.cat([out, turb], dim=-1)
 
 
-def _ghost_state(op: BCOp, wi, nhat, ref: ReferenceState, winf):
-    """Ghost-cell state for one halo layer given mirror-interior state wi."""
+def _ghost_state(op: BCOp, wi, nhat, ref: ReferenceState, winf, aux=None):
+    """Ghost-cell state for one halo layer given mirror-interior state wi;
+    ``aux`` is ``_wall_aux``'s data of the subface."""
     bc = op.bc
     gamma = GAMMA
+    uwall = aux.get("uwall") if aux else None
 
     if bc in (BCType.SYMMETRY, BCType.SYMMETRY_POLAR, BCType.EULER_WALL):
-        # slip: mirror the momentum vector; rho, rhoE, turb unchanged
-        return torch.cat([wi[..., IRHO:IRHO + 1], _reflect_momentum(wi, nhat),
-                          wi[..., IRHOE:]], dim=-1)
+        # slip: mirror the momentum vector; rho, rhoE, turb unchanged. A
+        # moving Euler wall mirrors the momentum relative to the wall
+        m = wi[..., IMX:IMZ + 1]
+        if bc is BCType.EULER_WALL and uwall is not None:
+            mw = wi[..., IRHO:IRHO + 1] * uwall
+            m = mw + _reflect_momentum(m - mw, nhat)
+        else:
+            m = _reflect_momentum(m, nhat)
+        return torch.cat([wi[..., IRHO:IRHO + 1], m, wi[..., IRHOE:]],
+                         dim=-1)
 
     if bc is BCType.NS_WALL_ADIABATIC:
-        # no-slip: opposite velocity, same rho/energy; turb -> -interior
-        out = torch.cat([wi[..., IRHO:IRHO + 1], -wi[..., IMX:IMZ + 1],
-                         wi[..., IRHOE:IRHOE + 1]], dim=-1)
+        # no-slip: opposite velocity, same rho/energy; turb -> -interior.
+        # A moving wall: ghost velocity 2 uwall - u, and the ghost energy
+        # from the interior pressure (bcNSWallAdiabatic sets pp1 = pp2)
+        wf_on = (ref.wall_fn and uwall is None and aux is not None
+                 and "dn" in aux)
+        if wf_on:
+            mg, utau, d1 = _wall_fn_ghost_momentum(wi, nhat, ref, aux["dn"])
+        else:
+            mg = -wi[..., IMX:IMZ + 1]
+        if uwall is not None:
+            mg = mg + 2.0 * wi[..., IRHO:IRHO + 1] * uwall
+            rhoe = (pressure(wi) / (gamma - 1.0) + 0.5 * torch.sum(
+                mg * mg, dim=-1) / wi[..., IRHO])[..., None]
+        else:
+            rhoe = wi[..., IRHOE:IRHOE + 1]
+        out = torch.cat([wi[..., IRHO:IRHO + 1], mg, rhoe], dim=-1)
         if wi.shape[-1] > ITURB:
-            out = torch.cat([out, -wi[..., ITURB:]], dim=-1)
+            turb = -wi[..., ITURB:]
+            if wf_on and wi.shape[-1] == ITURB + 1:
+                # SA wall-function anchor: the ghost mirrors the linear
+                # log-layer profile nuTilde = kappa u_tau y at -d1
+                turb = (-KARMAN_WF * utau * d1)[..., None]
+            out = torch.cat([out, turb], dim=-1)
         return out
 
     if bc is BCType.NS_WALL_ISOTHERMAL:
@@ -226,6 +348,8 @@ def _ghost_state(op: BCOp, wi, nhat, ref: ReferenceState, winf):
                                            device=wi.device))
         rho_g = gamma * pi / tg
         vg = -wi[..., IMX:IMZ + 1] / wi[..., IRHO:IRHO + 1]
+        if uwall is not None:
+            vg = vg + 2.0 * uwall
         rhoe = pi / (gamma - 1.0) + 0.5 * rho_g * torch.sum(vg * vg, dim=-1)
         out = torch.cat(
             [rho_g[..., None], rho_g[..., None] * vg, rhoe[..., None]], dim=-1)

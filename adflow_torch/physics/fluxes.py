@@ -12,8 +12,14 @@ Shapes for a block with (ni, nj, nk) interior cells:
   si: (ni+1, nj, nk, 3), sj/sk analogous
   returns residual contributions on the interior (ni, nj, nk, 5).
 
-Not ported: the low-speed preconditioner (``precon_mach`` must be 0) and
-ALE face velocities.
+``precon_mach`` > 0 switches on the Weiss-Smith low-speed preconditioner's
+eigenvalues in the radii; ALE face velocities (``metrics.vfIE``...) make
+the convective speed relative to the moving faces. Where the JAX package
+takes ``jnp.maximum`` / ``jnp.minimum`` / ``jnp.clip`` against a constant,
+this module takes ``torch.maximum`` / ``torch.minimum`` against a tensor
+(``_max``, ``_min``, ``_clip``): both split the derivative 0.5 / 0.5 at a
+tie, where ``torch.clamp`` passes 1. Of two tensors whose tangents may be
+far apart it takes ``_maximum`` / ``_minimum``.
 """
 
 from __future__ import annotations
@@ -37,6 +43,39 @@ def _euler_flux(w, p, svec):
     return torch.cat([fmass[..., None], fmom, fen[..., None]], dim=-1)
 
 
+def _const(x, like):
+    return torch.as_tensor(x, dtype=like.dtype, device=like.device)
+
+
+def _max(a, b):
+    """``jnp.maximum(a, b)`` for a tensor and a constant."""
+    return torch.maximum(a, _const(b, a))
+
+
+def _min(a, b):
+    """``jnp.minimum(a, b)`` for a tensor and a constant."""
+    return torch.minimum(a, _const(b, a))
+
+
+def _maximum(a, b):
+    """``jnp.maximum`` of two tensors: the derivative of the larger, half of
+    each at a tie. By ``torch.where``: the jvp of ``torch.maximum`` is
+    other_t + mask (self_t - other_t), which rounds the selected tangent
+    away where the other operand's tangent is far larger (SST's F1 takes
+    the minimum of terms some 1e20 apart)."""
+    return torch.where(a > b, a, torch.where(a < b, b, 0.5 * (a + b)))
+
+
+def _minimum(a, b):
+    """``jnp.minimum`` of two tensors, as ``_maximum``."""
+    return torch.where(a < b, a, torch.where(a > b, b, 0.5 * (a + b)))
+
+
+def _clip(a, lo, hi):
+    """``jnp.clip(a, lo, hi)``: a maximum, then a minimum."""
+    return _min(_max(a, lo), hi)
+
+
 def _abs(x):
     """|x| with the derivative +1 at 0, the JAX package's convention (the
     jvp of ``jnp.abs`` selects on x >= 0; ``torch.abs`` has 0 there). The
@@ -55,27 +94,49 @@ def extended_face_areas(metrics):
     return metrics.siE, metrics.sjE, metrics.skE
 
 
+LS_PRECON_K = 3.0          # beta^2 = clip(max(M^2, K Mref^2), eps, 1)
+
+
 def spectral_radii(w, p, metrics, precon_mach: float = 0.0
                    ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Convective spectral radii (radI, radJ, radK) per cell on the one-ring
-    extended grid: shape (ni+2, nj+2, nk+2). rad = |u . sAvg| + c |sAvg|."""
-    if precon_mach:
-        raise NotImplementedError(
-            "low-speed preconditioner (ROADMAP.md queue 1 item 9)")
+    extended grid: shape (ni+2, nj+2, nk+2). rad = |u . sAvg| + c |sAvg|,
+    with u relative to the moving faces under ALE.
+
+    ``precon_mach`` > 0: the Weiss-Smith preconditioned eigenvalue
+    (reference lowSpeedPreconditioner, residuals.F90:172-331), the acoustic
+    speed rescaled by beta^2 = clip(max(M_loc^2, K Mref^2), 1e-10, 1), so
+    dissipation and pseudo-time steps stay O(u) as M -> 0."""
     wE = w[1:-1, 1:-1, 1:-1]
     pE = p[1:-1, 1:-1, 1:-1]
     rho = wE[..., IRHO]
     vel = wE[..., IMX:IMZ + 1] / rho[..., None]
-    c = torch.sqrt(GAMMA * pE / rho)
+    c2 = GAMMA * pE / rho
+    c = torch.sqrt(c2)
+    beta2 = None
+    if precon_mach and precon_mach > 0.0:
+        m2 = torch.sum(vel * vel, dim=-1) / c2
+        beta2 = _clip(_max(m2, LS_PRECON_K * precon_mach ** 2), 1e-10, 1.0)
 
-    def rad(sE, axis):
+    def rad(sE, vfE, axis):
         s_avg = 0.5 * (_shift(sE, axis, 0, -1) + _shift(sE, axis, 1, 0))
         un = torch.sum(vel * s_avg, dim=-1)
+        if vfE is not None:
+            vf_avg = 0.5 * (_shift(vfE, axis, 0, -1)
+                            + _shift(vfE, axis, 1, 0))
+            un = un - torch.sum(vf_avg * s_avg, dim=-1)
         smag = torch.linalg.norm(s_avg, dim=-1)
-        return _abs(un) + c * smag
+        if beta2 is None:
+            return _abs(un) + c * smag
+        # lam = 0.5 (1+b2)|un| + sqrt(0.25 (1-b2)^2 un^2 + b2 c^2 |S|^2);
+        # b2 = 1 recovers |un| + c|S|
+        return (0.5 * (1.0 + beta2) * _abs(un)
+                + torch.sqrt(0.25 * (1.0 - beta2) ** 2 * un * un
+                             + beta2 * c2 * smag * smag))
 
     siE, sjE, skE = extended_face_areas(metrics)
-    return rad(siE, 0), rad(sjE, 1), rad(skE, 2)
+    return (rad(siE, metrics.vfIE, 0), rad(sjE, metrics.vfJE, 1),
+            rad(skE, metrics.vfKE, 2))
 
 
 def scaled_diss_radii(radI, radJ, radK, exponent: float):
@@ -93,7 +154,7 @@ def scaled_diss_radii(radI, radJ, radK, exponent: float):
 
 def inviscid_residual(w, p, metrics, vis2: float, vis4: float,
                       diss_exponent: float = 0.67, por=None,
-                      const_diss: bool = False):
+                      const_diss: bool = False, precon_mach: float = 0.0):
     """Central + JST residual on the interior, positive = net outflow.
 
     ``por``: optional per-axis face porosity tensors (1 = normal flux, 0 =
@@ -102,21 +163,24 @@ def inviscid_residual(w, p, metrics, vis2: float, vis4: float,
     reference's boundFlux treatment (fluxes.F90:60-77).
     ``const_diss``: the coarse-level dissipation, a constant vis2
     2nd-difference without the sensor and without the 4th difference.
+    ``precon_mach``: the low-speed preconditioner's radii (``spectral_radii``).
 
     Returns R with shape (ni, nj, nk, 5).
     """
-    radI, radJ, radK = spectral_radii(w, p, metrics)
+    radI, radJ, radK = spectral_radii(w, p, metrics, precon_mach)
     sradI, sradJ, sradK = scaled_diss_radii(radI, radJ, radK, diss_exponent)
     nu = _pressure_sensor(p)
     # rhoE+p in the dissipation energy row (5 mean-flow vars only)
     wd = torch.cat([w[..., :IRHOE], (w[..., IRHOE] + p)[..., None]], dim=-1)
 
     R = None
-    for axis, (s, srad) in enumerate(
-            [(metrics.si, sradI), (metrics.sj, sradJ), (metrics.sk, sradK)]):
+    for axis, (s, srad, vf) in enumerate(
+            [(metrics.si, sradI, metrics.vfI),
+             (metrics.sj, sradJ, metrics.vfJ),
+             (metrics.sk, sradK, metrics.vfK)]):
         mask = None if por is None else por[axis]
         flux = _face_flux_axis(w, p, wd, nu, s, srad, axis, vis2, vis4, mask,
-                               const_diss)
+                               const_diss, vf=vf)
         dR = _shift(flux, axis, 1, 0) - _shift(flux, axis, 0, -1)
         R = dR if R is None else R + dR
     return R
@@ -139,12 +203,15 @@ def _pressure_sensor(p):
 
 
 def _face_flux_axis(w, p, wd, nu, s, srad, axis, vis2, vis4, por=None,
-                    const_diss: bool = False):
+                    const_diss: bool = False, vf=None):
     """Total face flux (central - dissipation) along one axis.
 
     Face f (0..n_ax) separates interior cells f-1, f; in padded coords the
     four-cell stencil is w[f .. f+3]. Output shape: faces x interior
-    tangential x 5.
+    tangential x 5. ``vf``: ALE face velocity vectors (the shape of ``s``):
+    the convective velocity becomes relative to the moving face and the
+    energy row gains the face work p (vf . S), which survives at solid
+    moving walls (inviscidCentralFlux with sFace, fluxes.F90:4).
     """
     it = [slice(2, -2)] * 3
     it[axis] = slice(None)
@@ -157,6 +224,10 @@ def _face_flux_axis(w, p, wd, nu, s, srad, axis, vis2, vis4, por=None,
 
     qL = torch.sum(wL[..., IMX:IMZ + 1] * s, dim=-1) / wL[..., 0]
     qR = torch.sum(wR[..., IMX:IMZ + 1] * s, dim=-1) / wR[..., 0]
+    sdot = None if vf is None else torch.sum(vf * s, dim=-1)
+    if sdot is not None:
+        qL = qL - sdot
+        qR = qR - sdot
     if por is not None:
         # kill convection at solid faces; pressure remains (boundFlux)
         qL = qL * por
@@ -167,6 +238,8 @@ def _face_flux_axis(w, p, wd, nu, s, srad, axis, vis2, vis4, por=None,
                    + wR[..., IMX:IMZ + 1] * qR[..., None])
             + pa[..., None] * s)
     fen = 0.5 * ((wL[..., IRHOE] + pL) * qL + (wR[..., IRHOE] + pR) * qR)
+    if sdot is not None:
+        fen = fen + pa * sdot
     central = torch.cat([fmass[..., None], fmom, fen[..., None]], dim=-1)
 
     # -- JST dissipation: sensor and scaled radius on the one-ring extended

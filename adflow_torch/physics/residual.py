@@ -6,7 +6,8 @@ Pipeline per evaluation:
   -> per block: the fused RANS-SA kernel (ops/cuda_rans.py) on CUDA f32,
      else the inviscid fluxes: upwind or central + matrix dissipation
      (physics/upwind.py, plain), else central + JST (the inviscid kernel,
-     ops/cuda_inviscid.py, on CUDA f32) [-> viscous -> turbulence] -> R.
+     ops/cuda_inviscid.py, on CUDA f32) [-> viscous -> turbulence:
+     SA or SST] [-> actuator sources] -> R.
 """
 
 from __future__ import annotations
@@ -23,6 +24,7 @@ from adflow_torch.dist.halo import ConnOp, build_conn_ops, exchange_halos_list
 from adflow_torch.geom.metrics import BlockMetrics
 from adflow_torch.physics.bc import BCOp, apply_bcs, build_bc_ops
 from adflow_torch.physics.fluxes import inviscid_residual
+from adflow_torch.physics.sa import second_order
 from adflow_torch.physics.thermo import pressure
 
 
@@ -158,8 +160,12 @@ def fill_halos(w_list, metrics_list, topo: MeshTopology,
 
 def _kernel_applies(w, metrics, cfg, extras, por) -> bool:
     """The conditions of adflow_tpu/physics/residual.py:217-227, plus a CUDA
-    tensor."""
+    tensor and first-order turbulence advection: the JAX branch ignores
+    ``turbulenceOrder`` (its kernel advects nuTilde to first order) while
+    its plain path honours it, so the port keeps second-order runs on the
+    plain path."""
     return (cfg.use_kernels and cfg.rans and cfg.turbulence_model == "sa"
+            and not second_order(cfg)
             and not cfg.use_rotation_sa and not cfg.coarse_level
             and not cfg.use_qcr
             and cfg.discretization.startswith("central")
@@ -198,9 +204,6 @@ def block_residual(w, metrics: BlockMetrics, cfg: ProblemConfig,
             cfg.vis2, cfg.vis4, cfg.diss_exponent,
             ref.mu_inf, ref.t_inf_dim, cfg.use_ft2, cfg.turb_scales[0])
 
-    if extras and ("act_src" in extras or "act_src_momentum" in extras):
-        raise NotImplementedError("actuator sources (ROADMAP.md queue 1 "
-                                  "item 9)")
     p = pressure(w)
     if cfg.discretization.startswith("upwind"):
         from adflow_torch.physics.upwind import upwind_residual
@@ -224,17 +227,40 @@ def block_residual(w, metrics: BlockMetrics, cfg: ProblemConfig,
     else:
         r = inviscid_residual(w, p, metrics, cfg.vis2, cfg.vis4,
                               cfg.diss_exponent, por=por,
-                              const_diss=cfg.coarse_level)
+                              const_diss=cfg.coarse_level,
+                              precon_mach=cfg.ls_precon_mach)
     if cfg.viscous:
         from adflow_torch.physics.viscous import viscous_residual
         r = r + viscous_residual(w, p, metrics, cfg, ref, extras=extras)
     if cfg.rans:
-        if not cfg.turbulence_model.startswith("sa"):
-            raise NotImplementedError("SST (ROADMAP.md queue 1 item 9)")
-        from adflow_torch.physics.sa import sa_residual
         d = extras["walldist"] if extras else None
-        r = torch.cat([r, sa_residual(w, p, metrics, cfg, ref, d)], dim=-1)
+        if cfg.turbulence_model.startswith("sst"):
+            from adflow_torch.physics.sst import sst_residual
+            rt = sst_residual(w, p, metrics, cfg, ref, d)
+        else:
+            from adflow_torch.physics.sa import sa_residual
+            rt = sa_residual(w, p, metrics, cfg, ref, d)
+        r = torch.cat([r, rt], dim=-1)
+    if extras:
+        r = _actuator_sources(r, w, extras)
     return r
+
+
+def _actuator_sources(r, w, extras):
+    """Subtract the actuator-region sources (sourceTerms_block,
+    residuals.F90:348; V dw/dt = -R) from the mean-flow rows: ``act_src``,
+    and ``act_src_momentum`` with its energy row f . u evaluated at the
+    current state, once per evaluation, as the reference does."""
+    r5 = r[..., :5]
+    if "act_src" in extras:
+        r5 = r5 - extras["act_src"]
+    if "act_src_momentum" in extras:
+        fm = extras["act_src_momentum"]
+        wi = w[2:-2, 2:-2, 2:-2]
+        en = torch.sum(fm[..., 1:4] * (wi[..., 1:4] / wi[..., 0:1]), dim=-1)
+        r5 = r5 - torch.cat([torch.zeros_like(fm[..., :1]), fm[..., 1:4],
+                             (fm[..., 4] + en)[..., None]], dim=-1)
+    return torch.cat([r5, r[..., 5:]], dim=-1)
 
 
 def residual_list(w_list, metrics_list, topo: MeshTopology,

@@ -6,10 +6,11 @@ Standard SA-noft2/ft2 closure (Spalart & Allmaras 1994):
   d(nuT)/dt + u.grad(nuT) = cb1 (1-ft2) S~ nuT
       - (cw1 fw - cb1/k^2 ft2)(nuT/d)^2
       + 1/sigma [ div((nu+nuT) grad nuT) + cb2 (grad nuT)^2 ]
-Discretization: first-order upwind advection, Green-Gauss + normal-corrected
-face gradients for diffusion (shared scheme with physics/viscous.py).
-Rotation-SA and second-order turbulence advection are not ported
-(ROADMAP.md queue 1 item 9).
+Discretization: upwind advection, first order or (``turbulenceOrder:
+'second order'``) van-Albada-limited MUSCL, in the frame of the moving grid
+under ALE; Green-Gauss + normal-corrected face gradients for diffusion
+(shared scheme with physics/viscous.py). Variants: rotation-SA
+(Dacles-Mariani) and SA-Edwards (no ft2; ft2 is kept for model 'sa' only).
 """
 
 from __future__ import annotations
@@ -17,6 +18,7 @@ from __future__ import annotations
 import torch
 
 from adflow_torch.core.refstate import GAMMA
+from adflow_torch.physics.fluxes import _max, _min
 from adflow_torch.physics.thermo import IMX, IMZ, IRHO, ITURB, laminar_viscosity
 from adflow_torch.physics.viscous import (
     _face_avg, _face_gradient, _shift, green_gauss_gradients)
@@ -56,15 +58,30 @@ def sa_destruction_diag(w, metrics, d_ext):
     return 2.0 * CW1 * fw_max * nut_c / d_c ** 2 * metrics.vol[it]
 
 
+def second_order(cfg) -> bool:
+    """turbulenceOrder 'second order' (doc/options.yaml:198)."""
+    return cfg.turb_order.replace(" ", "").lower() == "secondorder"
+
+
+def upwind_face_value(qA, q_f, axis, second: bool):
+    """The upwind face value of the advected cell field ``qA`` (padded along
+    ``axis``, interior across it) at the faces of ``axis`` with normal
+    speed ``q_f``: the neighbour cell (first order) or its
+    van-Albada-limited MUSCL extrapolation (second order)."""
+    qL = _shift(qA, axis, 1, -2)
+    qR = _shift(qA, axis, 2, -1)
+    if second:
+        from adflow_torch.physics.upwind import _van_albada
+        dc = qR - qL
+        qL = qL + 0.5 * _van_albada(qL - _shift(qA, axis, 0, -3), dc)
+        qR = qR - 0.5 * _van_albada(_shift(qA, axis, 3, 0) - qR, dc)
+    return torch.where(q_f >= 0.0, qL, qR)
+
+
 def sa_residual(w, p, metrics, cfg, ref, d_ext):
     """SA residual on the interior: (ni, nj, nk, 1), sign such that
     V d(nuT)/dt = -R. Halos of w filled; d_ext: wall distance on the
     one-ring extended grid (geom/walldist.py)."""
-    if cfg.use_rotation_sa:
-        raise NotImplementedError("rotation-SA (ROADMAP.md queue 1 item 9)")
-    if cfg.turb_order.replace(" ", "").lower() == "secondorder":
-        raise NotImplementedError(
-            "second-order turbulence advection (ROADMAP.md queue 1 item 9)")
     rho = w[..., IRHO]
     vel = w[..., IMX:IMZ + 1] / rho[..., None]
     nut = w[..., ITURB]
@@ -88,6 +105,16 @@ def sa_residual(w, p, metrics, cfg, ref, d_ext):
     wz = gu[..., 1, 0] - gu[..., 0, 1]
     # guarded sqrt: omega is exactly 0 in uniform flow
     omega = torch.sqrt(torch.clamp(wx ** 2 + wy ** 2 + wz ** 2, min=1e-32))
+    if cfg.use_rotation_sa:
+        # Dacles-Mariani rotation correction (useRotationSA, sa.F90):
+        # S = omega + 2 min(0, |strain| - |vort|)
+        sxy = 0.5 * (gu[..., 0, 1] + gu[..., 1, 0])
+        sxz = 0.5 * (gu[..., 0, 2] + gu[..., 2, 0])
+        syz = 0.5 * (gu[..., 1, 2] + gu[..., 2, 1])
+        strain2 = (2.0 * (sxy ** 2 + sxz ** 2 + syz ** 2) + gu[..., 0, 0] ** 2
+                   + gu[..., 1, 1] ** 2 + gu[..., 2, 2] ** 2)
+        strain = torch.sqrt(_max(2.0 * strain2, 1e-32))
+        omega = omega + 2.0 * _min(strain - omega, 0.0)
     gnut = g_int[..., 3, :]
     gnut2 = torch.sum(gnut * gnut, dim=-1)
 
@@ -115,8 +142,9 @@ def sa_residual(w, p, metrics, cfg, ref, d_ext):
     # cb2 gradient-squared volume term of the diffusion operator
     R = R - (CB2 / SIGMA) * gnut2 * vol
 
-    # ---- advection (1st-order upwind) + diffusion, per direction ---------
+    # ---- advection (upwind) + diffusion, per direction -------------------
     nu_eff = (nu_lam + torch.clamp(nut, min=0.0))[1:-1, 1:-1, 1:-1]
+    second = second_order(cfg)
     q_div = 0.0
     for axis in range(3):
         s = (metrics.si, metrics.sj, metrics.sk)[axis]
@@ -127,10 +155,11 @@ def sa_residual(w, p, metrics, cfg, ref, d_ext):
         vL = _shift(vA, axis, 1, -2)
         vR = _shift(vA, axis, 2, -1)
         q_f = torch.sum(0.5 * (vL + vR) * s, dim=-1)      # u_f . S_f
-        ntA = nut[itx]
-        nt_up = torch.where(q_f >= 0.0, _shift(ntA, axis, 1, -2),
-                            _shift(ntA, axis, 2, -1))
-        flux_adv = q_f * nt_up
+        vf = (metrics.vfI, metrics.vfJ, metrics.vfK)[axis]
+        if vf is not None:
+            # ALE: advect in the frame of the moving grid (turbUtils.F90)
+            q_f = q_f - torch.sum(vf * s, dim=-1)
+        flux_adv = q_f * upwind_face_value(nut[itx], q_f, axis, second)
         R = R + (_shift(flux_adv, axis, 1, 0) - _shift(flux_adv, axis, 0, -1))
         q_div = q_div + (_shift(q_f, axis, 1, 0) - _shift(q_f, axis, 0, -1))
 

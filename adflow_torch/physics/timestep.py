@@ -37,8 +37,10 @@ def viscous_spectral_radii(w, metrics, cfg, ref):
 
 
 def local_timestep(w, p, metrics, cfl, cfg=None, ref=None):
-    """dt per interior cell. w/p halo-padded; returns (ni, nj, nk)."""
-    radI, radJ, radK = spectral_radii(w, p, metrics)
+    """dt per interior cell. w/p halo-padded; returns (ni, nj, nk). The
+    radii take ``cfg.ls_precon_mach`` (the low-speed preconditioner)."""
+    pm = cfg.ls_precon_mach if cfg is not None else 0.0
+    radI, radJ, radK = spectral_radii(w, p, metrics, pm)
     rsum = (radI + radJ + radK)[1:-1, 1:-1, 1:-1]
     if cfg is not None and cfg.viscous and ref is not None:
         rv = viscous_spectral_radii(w, metrics, cfg, ref)

@@ -25,17 +25,9 @@ from __future__ import annotations
 import torch
 
 from adflow_torch.core.refstate import GAMMA
-from adflow_torch.physics.fluxes import _abs, _pressure_sensor, _shift
+from adflow_torch.physics.fluxes import (
+    _abs, _const, _max, _pressure_sensor, _shift)
 from adflow_torch.physics.thermo import IMX, IMZ, IRHO
-
-
-def _const(x, like):
-    return torch.as_tensor(x, dtype=like.dtype, device=like.device)
-
-
-def _max(a, b: float):
-    """``jnp.maximum(a, b)`` for a tensor and a constant."""
-    return torch.maximum(a, _const(b, a))
 
 
 def _primitives(w, p):

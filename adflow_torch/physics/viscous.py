@@ -7,7 +7,8 @@ Halo-ring gradients use the edge-replicated face metrics.
 
 Nondimensionalization (core/refstate.py): tau' = mu' grad' u',
 heat flux k grad T with k' = mu' / (Pr (gamma-1)), T' = gamma p'/rho'.
-QCR is not ported (ROADMAP.md queue 1 item 9).
+The eddy viscosity is SA's or SST's (physics/sst.py); ``useQCR`` adds the
+QCR2000 correction to the stress.
 """
 
 from __future__ import annotations
@@ -15,6 +16,7 @@ from __future__ import annotations
 import torch
 
 from adflow_torch.core.refstate import GAMMA, PR_LAMINAR, PR_TURB
+from adflow_torch.physics.fluxes import _max
 from adflow_torch.physics.thermo import IMX, IMZ, IRHO, laminar_viscosity
 
 
@@ -92,11 +94,13 @@ def _viscosity_fields(w, p, metrics, cfg, ref, extras=None):
     k_eff = mu / (PR_LAMINAR * (GAMMA - 1.0))
     mut = None
     if cfg.rans:
-        if not cfg.turbulence_model.startswith("sa"):
-            raise NotImplementedError(
-                "SST (ROADMAP.md queue 1 item 9)")
-        from adflow_torch.physics.sa import eddy_viscosity
-        mut = eddy_viscosity(w[1:-1, 1:-1, 1:-1], mu)
+        if cfg.turbulence_model.startswith("sst"):
+            from adflow_torch.physics.sst import eddy_viscosity as mut_sst
+            mut = mut_sst(w, p, metrics, ref,
+                          extras["walldist"] if extras else None)
+        else:
+            from adflow_torch.physics.sa import eddy_viscosity
+            mut = eddy_viscosity(w[1:-1, 1:-1, 1:-1], mu)
         mu_eff = mu_eff + mut
         k_eff = k_eff + mut / (PR_TURB * (GAMMA - 1.0))
     return prim, g, mu_eff, k_eff, mut
@@ -108,11 +112,9 @@ def face_viscous_flux(w, p, metrics, cfg, ref, axis, extras=None,
     of one axis: (fmom (faces.., 3), fen (faces..)). Face index 0 is the
     block's low boundary face — the wall-stress source for force
     integration."""
-    if getattr(cfg, "use_qcr", False):
-        raise NotImplementedError("QCR (ROADMAP.md queue 1 item 9)")
     if fields is None:
         fields = _viscosity_fields(w, p, metrics, cfg, ref, extras)
-    prim, g, mu_eff, k_eff, _mut = fields
+    prim, g, mu_eff, k_eff, mut = fields
     if xc_ext is None:
         xc_ext = metrics.xc_ext
     it = [slice(2, -2)] * 3
@@ -127,6 +129,16 @@ def face_viscous_flux(w, p, metrics, cfg, ref, axis, extras=None,
     eye = torch.eye(3, dtype=w.dtype, device=w.device)
     tauS = (gu + gu.transpose(-1, -2)) - (2.0 / 3.0) * div[..., None, None] * eye
     tau = mu_f[..., None, None] * tauS
+    if getattr(cfg, "use_qcr", False) and mut is not None:
+        # SA-QCR2000 (fluxes.F90:2742): tau -= Ccr1 mu_t (O_ik tauS_jk +
+        # O_jk tauS_ik) with O = 2 W / |grad u| and the vorticity tensor
+        # W_ij = du_i/dx_j - du_j/dx_i; only the eddy viscosity enters
+        ccr1 = 0.3
+        den = torch.sqrt(_max(torch.sum(gu * gu, dim=(-1, -2)), 1e-28))
+        W = gu - gu.transpose(-1, -2)
+        A = torch.einsum("...ik,...jk->...ij", W, tauS)
+        fact = (_face_avg(mut, axis) * ccr1 / den)[..., None, None]
+        tau = tau - fact * (A + A.transpose(-1, -2))
     fmom = torch.einsum("...ab,...b->...a", tau, s)
 
     vel = prim[..., 0:3]

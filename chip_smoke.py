@@ -37,7 +37,7 @@ well). Then, each phase timed:
            counted; the transposed PC's build and apply and one vjp
            matvec timed; the dot-product identity at full width; three
            adjoint GMRES iterations under torch.profiler;
-  [17]     matrix dissipation on the main path's wing: 3 ANK steps from the
+  [17]     matrix dissipation on the main path's wing: 2 ANK steps from the
            free stream with the characteristic line PC, exactly no kernel
            launch; the PC's build and apply, a jvp matvec, the upwind (Roe,
            van Albada) residual and its jvp timed; the peak device memory;
@@ -52,7 +52,19 @@ well). Then, each phase timed:
            f64 continuation after the handover; the f64 residual of its
            answer on the CPU below 1e-7 of the free-stream one, and the
            answer against a float64 solve on the CPU (a process of its
-           own, run meanwhile).
+           own, run meanwhile);
+  [20]     SST on the main path's mesh, viscous (RANS at the RK path's
+           conditions): 2 ANK steps from the free stream, K2 for every
+           residual evaluation and no K1 launch; one SST residual, a jvp
+           matvec, the 7-equation line PC timed; the peak device memory;
+           one jvp matvec and one PC apply under torch.profiler;
+  [21]     small cases, card against CPU with exact launch counts: SST, the
+           SA variants (rotation, Edwards, QCR, second-order advection)
+           through K2, SA with wall functions on the plate through K1,
+           grid motion and the low-speed preconditioner with no kernel
+           (their residuals and one ANK step each), actuator sources on
+           the channel through K2, and ``evalFunctionsSens`` of cl in
+           rotRate, rotCenter and machGrid on the Euler wing.
 Any failed check raises, so the exit code is not 0. The last line is
 ``{"ok": true, "device": {...}}``; the line before it lists the kernels with
 their launches, errors and times (``ms`` by CUDA events around calls of the
@@ -126,10 +138,10 @@ DOT_RTOL_F32 = 1e-2
 FULL_ADJ_OPTS = {"adjointSubspaceSize": 40, "adjointMaxIter": 40,
                  "printIterations": True, "adjointMonitorStep": 10}
 
-# [17], the slice at full width: matrix dissipation on the main path's
-# mesh, depth cut to 3 ANK steps; and the upwind residual at its state
+# [17], matrix dissipation on the main path's mesh, depth cut to 2 ANK
+# steps; and the upwind residual at its state
 MATRIX = {"discretization": "central plus matrix dissipation"}
-MATRIX_STEPS = 3
+MATRIX_STEPS = 2
 UPWIND = {"discretization": "upwind", "riemannSolver": "Roe",
           "limiter": "van Albada"}
 # [18], the small cases: card (f32) against the CPU (f64) at the seeded
@@ -170,6 +182,17 @@ PLATE_CONV = 1e-7       # the answer's f64 residual, of the free-stream one
 PLATE_REF_CONV = 1e-10  # the float64 reference, converged past the card's
 PLATE_REF_THREADS = 2
 PLATE_RTOL = 1e-5       # cd, cf and flow-through functions, against it
+
+# [20], the slice at full width: SST on the main path's mesh, viscous, at
+# the RK path's conditions, depth cut to SST_STEPS ANK steps
+SST_OPTS = {"useANKSolver": True, "turbulenceModel": "SST"}
+SST_STEPS = 2
+# [21], the slice's options on small cases, card (f32) against the CPU
+# (f64): the grid motion and the plate of the CPU tests
+GRID_MOTION = dict(rotRate=(0.0, 0.0, 30.0), rotCenter=(0.25, 0.1, 0.0),
+                   machGrid=0.1)
+PLATE_SMALL = dict(name="fp", mach=0.3, alpha=0.0, reynolds=1e6,
+                   reynoldsLength=1.0, T=300.0)
 
 # peak rates for the bound: (device-memory bytes/s, f32 FLOP/s outside the
 # tensor cores), NVIDIA data sheets; the SXM part is the default
@@ -329,10 +352,10 @@ def main_path_operands(solver):
     return tensors, consts
 
 
-def flux_scale(w, p, s_faces, sa_row_scale=None):
+def flux_scale(w, p, s_faces, turb_scales=()):
     """Each channel's flux scale: the largest |F(w) . S| over the lower
-    faces of the interior cells, on every axis. With ``sa_row_scale`` an SA
-    channel follows: the advective flux (u . S) nuTilde, row-scaled."""
+    faces of the interior cells, on every axis. Each of ``turb_scales``
+    adds a turbulence channel: its advective flux (u . S) q, row-scaled."""
     from adflow_torch.physics.fluxes import _euler_flux
     wc, pc = w[2:-2, 2:-2, 2:-2], p[2:-2, 2:-2, 2:-2]
     scale = None
@@ -340,10 +363,11 @@ def flux_scale(w, p, s_faces, sa_row_scale=None):
         sl = [slice(1, -1)] * 3
         sl[axis] = slice(1, -2)     # the lower face of each interior cell
         f = _euler_flux(wc, pc, sE[tuple(sl)])
-        s = f.abs().amax(dim=(0, 1, 2))
-        if sa_row_scale is not None:
-            f_sa = (f[..., 0] / wc[..., 0] * wc[..., 5]).abs() * sa_row_scale
-            s = torch.cat([s, f_sa.amax()[None]])
+        s = [f.abs().amax(dim=(0, 1, 2))]
+        for i, ts in enumerate(turb_scales):
+            s.append(((f[..., 0] / wc[..., 0] * wc[..., 5 + i]).abs()
+                      * ts).amax()[None])
+        s = torch.cat(s)
         scale = s if scale is None else torch.maximum(scale, s)
     return scale
 
@@ -366,7 +390,8 @@ def compare_post_solve(tensors, consts):
         *(t.double() for t in tensors), *consts)
     torch.cuda.synchronize()
     w = tensors[0]
-    scale = flux_scale(w, pressure(w), tensors[1:4], sa_row_scale=consts[6])
+    scale = flux_scale(w, pressure(w), tensors[1:4],
+                       turb_scales=(consts[6],))
     diff = (got.double() - want.double()).abs().amax(dim=(0, 1, 2))
     flux_rel = (diff / scale.double()).tolist()
     rel, abs_err = rel_errors(want, got)
@@ -529,7 +554,7 @@ def perturbed_state(solver, seed=0, amp=1e-3):
             * rng.standard_normal(w.shape)).reshape(-1)
 
 
-def small_ank_parity(n_steps=3, options=None):
+def small_ank_parity(n_steps=3, options=None, ap_changes=None):
     """The port's default ANK solve of the 16x8x8 Euler wing on the card
     (f32, through K2 with the default options) against the same solve on
     the CPU (f64, plain), ``n_steps`` steps from the same seeded 0.1%
@@ -546,7 +571,7 @@ def small_ank_parity(n_steps=3, options=None):
         solver = ADFLOW(options=dict(euler_options(n_steps),
                                      **(options or {})),
                         mesh=wing_omesh(ni=16, nj=8, nk=8), device=device)
-        ap = AeroProblem(**EULER)
+        ap = AeroProblem(**dict(EULER, **(ap_changes or {})))
         solver.setAeroProblem(ap)
         if w0 is None:
             w0 = perturbed_state(solver)
@@ -558,7 +583,8 @@ def small_ank_parity(n_steps=3, options=None):
     h_rel = float(np.abs(ig.history[:, 0] - ic.history[:, 0]).max()
                   / np.abs(ic.history[:, 0]).max())
     f_rel = max(abs(fg[k] - fc[k]) / abs(fc[k]) for k in fc)
-    print(f"  wing 16x8x8, {n_steps} ANK steps, {options or 'defaults'}: "
+    print(f"  wing 16x8x8, {n_steps} ANK steps, {options or 'defaults'}"
+          f"{', ' + str(ap_changes) if ap_changes else ''}: "
           f"card ({dg}) vs CPU ({dc}): history "
           f"rel err {h_rel:.3e}, cl/cd rel err {f_rel:.3e} (tolerance "
           f"{ANK_SOLVE_RTOL:g}); Krylov iterations card "
@@ -730,7 +756,8 @@ def profile_device(run, label, kernel=None):
     return dev / 1e3 / count
 
 
-def small_adjoint(equation, device, funcs, w0=None, **options):
+def small_adjoint(equation, device, funcs, w0=None, ap_changes=None,
+                  **options):
     """``evalFunctionsSens`` of ``funcs`` on the 16x8x8 wing at the seeded
     perturbed free stream (``w0``, else made here), with the launches it
     made on the card: (totals, solver, K1 launches, K2 launches, w0)."""
@@ -744,7 +771,7 @@ def small_adjoint(equation, device, funcs, w0=None, **options):
     solver = ADFLOW(options=opts, mesh=wing_omesh(
         ni=ADJ_DIMS[0], nj=ADJ_DIMS[1], nk=ADJ_DIMS[2], viscous=rans),
         device=device)
-    ap = AeroProblem(**(M6 if rans else EULER))
+    ap = AeroProblem(**dict(M6 if rans else EULER, **(ap_changes or {})))
     solver.setAeroProblem(ap)
     w0 = perturbed_state(solver) if w0 is None else w0
     solver.setStates(w0)
@@ -1273,6 +1300,246 @@ def plate_mixed(reference):
     return k1
 
 
+def sst_path(scalar_pc_ms):
+    """[20]: the default ANK solve of the main path's mesh, viscous, with
+    RANS and SST, SST_STEPS steps from the free stream: exactly no K1
+    launch and K2 for every residual evaluation (the mean flow of a block
+    K1 declines); its pieces at the final state beside the SA-free scalar
+    PC of [14], the peak device memory, and one jvp matvec plus one PC
+    apply under the profiler. Returns the K2 launches."""
+    from adflow_torch.api.solver import ADFLOW
+    from adflow_torch.core.refstate import AeroProblem
+    from adflow_torch.meshgen.analytic import wing_omesh
+    from adflow_torch.physics.residual import block_residual
+    from adflow_torch.solvers import newton
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    solver = ADFLOW(options=dict(solver_options(SST_STEPS), **SST_OPTS),
+                    mesh=wing_omesh(ni=FULL_DIMS[0], nj=FULL_DIMS[1],
+                                    nk=FULL_DIMS[2], viscous=True))
+    ap = AeroProblem(**M6)
+    solver.setAeroProblem(ap)
+    torch.cuda.synchronize()
+    zero_launches()
+    t1 = time.perf_counter()
+    solver(ap)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    k1, k2 = launches()
+    funcs = solver.evalFunctions(ap, {})
+    info = solver.solve_info
+    print_steps(info)
+    expected = 2 + sum(r.res_evals for r in info.steps)
+    print(f"  {len(info.steps)} ANK steps in {t2 - t1:.3f} s: "
+          f"{(t2 - t1) / len(info.steps) * 1e3:.3f} ms per step; Krylov "
+          f"iterations {[int(r.stats[4]) for r in info.steps]}; cl "
+          f"{funcs['m6_cl']!r}, cd {funcs['m6_cd']!r}")
+    print(f"  K2 launches {k2} (expected {expected}: 2 for the Newton "
+          f"driver's free-stream and starting norms + the steps' residual "
+          f"evaluations), K1 launches {k1} (expected 0: K1 is SA's)")
+    assert solver.dtype == torch.float32 and solver.ref.nw == 7
+    assert len(info.steps) == SST_STEPS and not info.failed
+    assert np.all(np.isfinite(info.history))
+    assert np.isfinite(funcs["m6_cl"]) and np.isfinite(funcs["m6_cd"])
+    assert k2 == expected and k1 == 0, (k1, k2)
+
+    opts = solver.options
+    fns = newton.build_newton_fns(
+        solver.w_list, solver.metrics_list, solver.topo, solver.cfg,
+        solver.ref, solver.winf, solver.extras_list)
+    wvec = fns.packer.pack_w(solver.w_list)
+    cfl = info.steps[-1].cfl
+    axes, kappa = newton._pc_params(opts)
+    pc = fns.build_pc(wvec, cfl, axes=axes, kappa=kappa)
+    v = fns.res_flat(wvec)
+    v = v / torch.linalg.norm(v)
+    wf = solver._filled_w()[0]
+    m, ex, por = (solver.metrics_list[0], solver.extras_list[0],
+                  solver.topo.blocks[0].por)
+    parts = (
+        ("SST block_residual (K2 + plain viscous and SST)",
+         lambda: block_residual(wf, m, solver.cfg, solver.ref, ex, por=por),
+         5),
+        ("one jvp matvec (SST)",
+         lambda: torch.func.jvp(fns.res_flat, (wvec,), (v,)), 3),
+        ("7-equation line PC build", lambda: fns.build_pc(
+            wvec, cfl, axes=axes, kappa=kappa), 3),
+        ("7-equation line PC apply",
+         lambda: newton.pc_apply_vec(pc, fns.packer, v), 10),
+    )
+    zero_launches()
+    for label, fn, reps in parts:
+        print(f"  {label}: {time_ms(fn, reps=reps, warmup=1):.4f} ms "
+              f"(median of {reps})")
+    print(f"  [14]'s scalar PC (Euler, 5 equations): build "
+          f"{scalar_pc_ms[0]:.4f} ms, apply {scalar_pc_ms[1]:.4f} ms")
+    assert launches()[0] == 0, launches()
+
+    def matvec_and_pc():
+        newton.pc_apply_vec(pc, fns.packer,
+                            torch.func.jvp(fns.res_flat, (wvec,), (v,))[1])
+
+    profile_device(matvec_and_pc, "one jvp matvec and one PC apply (SST)")
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    print(f"  peak device memory {peak:.3f} GiB")
+    return k2
+
+
+def _on_cpu(x):
+    """Tensors, metrics, dicts and tuples of them, copied to the CPU."""
+    if torch.is_tensor(x):
+        return x.cpu()
+    if isinstance(x, dict):
+        return {k: _on_cpu(v) for k, v in x.items()}
+    if isinstance(x, tuple):
+        return type(x)(*(_on_cpu(v) for v in x)) if hasattr(x, "_fields") \
+            else tuple(_on_cpu(v) for v in x)
+    return x
+
+
+def small_residual(label, mesh, ap, options, want_launches, setup=None):
+    """The block residual of ``mesh`` at the seeded perturbed free stream
+    on the card (f32), after ``setup`` of each solver; the card's K1 and K2
+    launches must be ``want_launches``. Returns them.
+
+    The mean-flow rows are held to the CPU's f64 residual, of the flux
+    scale: the largest mean-flow face flux, one number, as the CPU tests
+    take it (at M 0.05 the mass flux is 1e-2 of the pressure terms that
+    round in f32). A turbulence row near a wall is a difference of terms
+    far larger than itself, computed on f32 metrics whose first cells
+    (1e-6 thick at coordinates of order 1) are off their f64 values by
+    percents; so every row is also held to the plain version in f32 on the
+    CPU, on the card's own inputs, turbulence rows per the larger of their
+    row-scaled advective flux and their largest entry, and the turbulence
+    rows' distance from f64 is printed."""
+    from adflow_torch.physics.residual import block_residual
+    from adflow_torch.physics.thermo import pressure
+
+    cpu, w0 = small_state("cpu", mesh(), ap, options)
+    card, _ = small_state("cuda:0", mesh(), ap, options, w0)
+    for s in (cpu, card):
+        if setup is not None:
+            setup(s)
+
+    def residual(s, on_cpu=False):
+        args = (s._filled_w()[0], s.metrics_list[0], s.cfg, s.ref,
+                s.extras_list[0] if s.extras_list else None,
+                s.topo.blocks[0].por)
+        if on_cpu:
+            args = _on_cpu(args)
+        return block_residual(*args[:5], por=args[5])
+
+    r64 = residual(cpu)
+    zero_launches()
+    rg = residual(card)
+    torch.cuda.synchronize()
+    got_launches = launches()
+    r32 = residual(card, on_cpu=True).double()
+    rg = rg.double().cpu()
+    wc = cpu._filled_w()[0]
+    m = cpu.metrics_list[0]
+    scale = flux_scale(wc, pressure(wc), (m.siE, m.sjE, m.skE),
+                       turb_scales=cpu.cfg.turb_scales)
+    scale = torch.cat([scale[:5].max().expand(5), torch.maximum(
+        scale[5:], r32.abs().amax(dim=(0, 1, 2))[5:])])
+    err64 = ((rg - r64).abs().amax(dim=(0, 1, 2)) / scale).tolist()
+    err32 = ((rg - r32).abs().amax(dim=(0, 1, 2)) / scale).tolist()
+    print(f"  {label}: residual card vs CPU f64 (mean flow), per channel of "
+          f"the flux scale {[f'{e:.2e}' for e in err64[:5]]}; card vs the "
+          f"plain f32 version {[f'{e:.2e}' for e in err32]} (tolerance "
+          f"{FLUX_RTOL:g}); turbulence rows vs f64 "
+          f"{[f'{e:.2e}' for e in err64[5:]]}; K1, K2 launches "
+          f"{got_launches} (expected {want_launches})")
+    assert bool(torch.isfinite(rg).all())
+    assert max(err64[:5]) < FLUX_RTOL and max(err32) < FLUX_RTOL
+    assert got_launches == want_launches, (label, got_launches)
+    return got_launches
+
+
+def small_physics_parity():
+    """[21]: the slice's options on small cases, card (f32) against the CPU
+    (f64) from the seeded perturbation, with exact launch counts; one ANK
+    step with grid motion and one with the low-speed preconditioner; the
+    grid-motion totals of ``evalFunctionsSens``. Returns the K1 and K2
+    launches."""
+    from adflow_torch.meshgen.analytic import (
+        channel_mesh, flatplate_mesh, wing_omesh)
+
+    def wing(viscous):
+        return lambda: wing_omesh(ni=16, nj=8, nk=8, viscous=viscous)
+
+    plate = PLATE_SMALL
+    k1 = k2 = 0
+    for label, options in (
+            ("SST", {"turbulenceModel": "SST"}),
+            ("rotation-SA", {"useRotationSA": True}),
+            ("SA-Edwards", {"turbulenceModel": "SA-Edwards"}),
+            ("QCR", {"useQCR": True}),
+            ("second-order SA advection", {"turbulenceOrder":
+                                           "second order"})):
+        a, b = small_residual(f"RANS wing 16x8x8, {label}", wing(True), M6,
+                              dict(solver_options(1), **options), (0, 1))
+        k1, k2 = k1 + a, k2 + b
+    a, b = small_residual(
+        "plate 16x12, SA with wall functions",
+        lambda: flatplate_mesh(ni=16, nj=12), plate,
+        dict(solver_options(1), useWallFunctions=True), (1, 0))
+    k1, k2 = k1 + a, k2 + b
+    a, b = small_residual(
+        "Euler wing 16x8x8, rotRate + machGrid", wing(False),
+        dict(EULER, **GRID_MOTION), euler_options(1), (0, 0))
+    k1, k2 = k1 + a, k2 + b
+    a, b = small_residual(
+        "Euler wing 16x8x8, low-speed preconditioner at M 0.05",
+        wing(False), dict(EULER, mach=0.05),
+        dict(euler_options(1), lowSpeedPreconditioner=True), (0, 0))
+    k1, k2 = k1 + a, k2 + b
+
+    def disk(solver):
+        solver.addActuatorRegion([1.4, 0.5, 0.1], [1.6, 0.5, 0.1],
+                                 radius=10.0, thrust=0.01, torque=0.002)
+
+    a, b = small_residual(
+        "Euler channel 16x8x2, actuator disk (thrust and torque)",
+        lambda: channel_mesh(*CHANNEL_DIMS), dict(name="ch", mach=0.3),
+        euler_options(1), (0, 1), setup=disk)
+    k1, k2 = k1 + a, k2 + b
+
+    for options, changes in (({}, GRID_MOTION),
+                             ({"lowSpeedPreconditioner": True},
+                              {"mach": 0.05})):
+        zero_launches()
+        small_ank_parity(1, options, changes)
+        print(f"  K1, K2 launches on the card {launches()} (expected "
+              f"(0, 0))")
+        assert launches() == (0, 0), launches()
+
+    funcs = ["cl"]
+    cpu, _, _, _, w0 = small_adjoint("euler", "cpu", funcs,
+                                     ap_changes=GRID_MOTION,
+                                     **ADJ_EULER_OPTS)
+    card, _, a, b, _ = small_adjoint("euler", "cuda:0", funcs, w0,
+                                     ap_changes=GRID_MOTION,
+                                     **ADJ_EULER_OPTS)
+    print(f"  K1, K2 launches {(a, b)} (expected (0, 0): grid motion "
+          f"keeps both kernels off)")
+    assert (a, b) == (0, 0), (a, b)
+
+    def grid_totals(t):
+        t = t["m6e_cl"]
+        return {"alpha": t["alpha"], "machGrid": t["machGrid"],
+                "rotRate_z": float(t["rotRate"][2]),
+                "rotCenter_x": float(t["rotCenter"][0]), "xv": t["xv"]}
+
+    compare_totals("card vs CPU, grid motion, cl", grid_totals(cpu),
+                   grid_totals(card),
+                   ("alpha", "machGrid", "rotRate_z", "rotCenter_x"),
+                   ADJ_EULER_RTOL)
+    return k1, k2
+
+
 def kernel_times(label, fused, plain, tensors, consts, n_bytes, n_flop,
                  name):
     """Kernel and plain-version times (CUDA events, median of 20) and the
@@ -1474,6 +1741,16 @@ def main() -> int:
         phase("[19] a turbulent plate converged on the card: precision "
               "'mixed' with NK, against a float64 solve on the CPU")
         k1_plate = plate_mixed(reference)
+
+    phase("[20] the slice at full width: SST on the "
+          f"{'x'.join(map(str, FULL_DIMS))} viscous wing, {SST_STEPS} ANK "
+          "steps, K2 for the mean flow")
+    k2_sst = sst_path(scalar_pc_ms)
+
+    phase("[21] small cases, card against CPU: SST, the SA variants, wall "
+          "functions, grid motion, the low-speed preconditioner, actuator "
+          "sources, the grid-motion adjoint")
+    k1_phys, k2_phys = small_physics_parity()
     phase()
     print(f"total wall time {time.perf_counter() - t_start:.1f} s")
 
@@ -1484,13 +1761,15 @@ def main() -> int:
          "replaces": "adflow_tpu/ops/pallas_rans.py:58",
          "design": "one pass, i-march",
          "launches": (k1_rk + k1_ank + k1_adj + k1_matrix + k1_small
-                      + k1_plate),
+                      + k1_plate + k1_phys),
          "launches_by_path": {"rk_rans_wing_256x64x64": k1_rk,
                               "ank_rans_wing_64x24x16": k1_ank,
                               "adjoint_rans_wing_16x8x8": k1_adj,
                               "matrix_euler_wing_256x64x64": k1_matrix,
                               "upwind_matrix_wing_16x8x8": k1_small,
-                              "mixed_rans_plate_16x12": k1_plate},
+                              "mixed_rans_plate_16x12": k1_plate,
+                              "sst_wing_256x64x64": 0,
+                              "physics_small_cases": k1_phys},
          "max_abs_err": max_abs, "max_rel_err": flux_rel,
          "max_rel_err_of_residual": max_rel, **k1_times,
          "library_ms": None},
@@ -1499,13 +1778,15 @@ def main() -> int:
          "replaces": "adflow_tpu/ops/pallas_residual.py:45",
          "design": "one pass, i-march",
          "launches": (k2_ank + k2_adj + k2_full_adj + k2_matrix + k2_small
-                      + k2_mixed),
+                      + k2_mixed + k2_sst + k2_phys),
          "launches_by_path": {"ank_euler_wing_256x64x64": k2_ank,
                               "adjoint_euler_wing_16x8x8": k2_adj,
                               "adjoint_euler_wing_256x64x64": k2_full_adj,
                               "matrix_euler_wing_256x64x64": k2_matrix,
                               "upwind_matrix_wing_16x8x8": k2_small,
-                              "mixed_euler_wing_16x8x8": k2_mixed},
+                              "mixed_euler_wing_16x8x8": k2_mixed,
+                              "sst_wing_256x64x64": k2_sst,
+                              "physics_small_cases": k2_phys},
          "max_abs_err": k2_abs, "max_rel_err": k2_flux_rel, **k2_times,
          "library_ms": None},
     ]}))

@@ -118,8 +118,7 @@ def test_jacobian_vector_products_are_transposes(pair):
     assert abs(fdot[name] - (fw @ wd + fx @ xd)) < TOL * abs(fdot[name])
 
 
-@pytest.mark.parametrize("what", ["multigrid", "grid motion",
-                                  "user surfaces"])
+@pytest.mark.parametrize("what", ["multigrid", "user surfaces"])
 def test_unported_adjoint_parts_raise(pair, monkeypatch, what):
     _, _, ts = pair
     if what == "multigrid":
@@ -127,11 +126,6 @@ def test_unported_adjoint_parts_raise(pair, monkeypatch, what):
             adjointGlobalPreconditioner="multigrid"))
         with pytest.raises(NotImplementedError, match="item 10"):
             ts.solveAdjoint(ts.curAP, "cd")
-    elif what == "grid motion":
-        params = dict(ts._ap_params(ts.curAP),
-                      rotRate=torch.zeros(3, dtype=torch.float64))
-        with pytest.raises(NotImplementedError, match="item 9"):
-            ts._adjoint_fns().res(*ts._wx_vecs(), params)
     else:
         # the port never holds one, so the adjoint's functions take none
         with pytest.raises(NotImplementedError, match="item 11"):

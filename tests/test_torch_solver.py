@@ -6,7 +6,8 @@ RANS, ``useANKSolver=False`` and 25 RK cycles in float64 on the CPU. The
 residual history, the final interior states and ``evalFunctions`` cl/cd
 agree to 1e-9 relative. The port refuses to start without a card unless the
 caller names a device, and none of its modules imports JAX or the JAX
-package.
+package. Each physics option and an actuator region run through
+``ADFLOW``; what still raises names its ROADMAP.md item (10-13).
 """
 
 import subprocess
@@ -21,7 +22,7 @@ from adflow_tpu.core.refstate import AeroProblem as JaxAP
 from adflow_tpu.meshgen.analytic import wing_omesh as jax_wing
 from adflow_torch.api.solver import ADFLOW
 from adflow_torch.core.refstate import AeroProblem
-from adflow_torch.meshgen.analytic import wing_omesh
+from adflow_torch.meshgen.analytic import flatplate_mesh, wing_omesh
 
 OPTS = {"equationType": "RANS", "useANKSolver": False, "useNKSolver": False,
         "nCycles": 25, "printIterations": False, "printTiming": False}
@@ -135,9 +136,6 @@ def test_unported_branches_raise(branch, opts):
 
 
 @pytest.mark.parametrize("option,value,item", [
-    ("useWallFunctions", True, "9"),
-    ("turbulenceModel", "SST", "9"),
-    ("lowSpeedPreconditioner", True, "9"),
     ("meshDevices", 2, "12"),
 ])
 def test_unported_options_raise(option, value, item):
@@ -146,12 +144,59 @@ def test_unported_options_raise(option, value, item):
                mesh=wing_omesh(ni=8, nj=4, nk=4, viscous=True), device="cpu")
 
 
-def test_grid_motion_raises():
-    solver = ADFLOW(options=OPTS,
-                    mesh=wing_omesh(ni=8, nj=4, nk=4, viscous=True),
-                    device="cpu")
-    with pytest.raises(NotImplementedError, match="item 9"):
-        solver.setAeroProblem(AeroProblem(**dict(AP, machGrid=0.5)))
+PLATE_AP = dict(name="fp", mach=0.3, alpha=0.0, reynolds=1e6,
+                reynoldsLength=1.0, T=300.0, evalFuncs=["cd"])
+
+
+@pytest.mark.parametrize("options,ap_changes", [
+    ({"useWallFunctions": True, "useANKSolver": False, "nCycles": 25}, {}),
+    ({"turbulenceModel": "SST"}, {}),
+    ({"turbulenceModel": "SA-Edwards"}, {}),
+    ({"useQCR": True, "useRotationSA": True}, {}),
+    ({"turbulenceOrder": "second order"}, {}),
+    ({"lowSpeedPreconditioner": True}, {"mach": 0.05}),
+    ({}, {"rotRate": (0.0, 0.0, 20.0), "rotCenter": (0.25, 0.0, 0.0)}),
+    ({}, {"machGrid": 0.2}),
+], ids=["wall functions", "SST", "SA-Edwards", "QCR and rotation-SA",
+        "second-order turbulence", "low-speed preconditioner", "rotRate",
+        "machGrid"])
+def test_physics_options_solve(options, ap_changes):
+    """Every physics option of the JAX package's residual runs through
+    ``ADFLOW`` on the 16x12 RANS plate: two ANK steps (the wall functions
+    25 RK cycles: their jvp is slow on the CPU) and ``evalFunctions``. The
+    options' parity with the JAX package is in tests/test_torch_sst.py,
+    _sa_variants.py, _wallfn.py, _lowspeed.py and _ale.py."""
+    opts = dict(OPTS, useANKSolver=True, nCycles=2, ANKMaxIter=4)
+    solver = ADFLOW(options=dict(opts, **options),
+                    mesh=flatplate_mesh(ni=16, nj=12), device="cpu")
+    ap = AeroProblem(**dict(PLATE_AP, **ap_changes))
+    solver(ap)
+    funcs = solver.evalFunctions(ap, {})
+    info = solver.solve_info
+    assert info.iterations == int(solver.options["nCycles"])
+    assert not info.failed and np.all(np.isfinite(info.history))
+    assert info.history[-1, 0] < info.history[0, 0]
+    assert np.isfinite(funcs["fp_cd"])
+    if ap_changes.keys() & {"rotRate", "machGrid"}:
+        assert solver.metrics_list[0].vfIE is not None
+
+
+def test_actuator_region_solves():
+    """``addActuatorRegion`` on the RANS plate (a disk across the flow
+    above the plate), then two ANK steps (parity in
+    tests/test_torch_actuator.py)."""
+    solver = ADFLOW(options=dict(OPTS, useANKSolver=True, nCycles=2,
+                                 ANKMaxIter=4),
+                    mesh=flatplate_mesh(ni=16, nj=12), device="cpu")
+    ap = AeroProblem(**PLATE_AP)
+    solver.setAeroProblem(ap)
+    solver.addActuatorRegion([0.4, 0.1, 0.025], [0.5, 0.1, 0.025],
+                             radius=0.1, thrust=1e-4)
+    src = solver.extras_list[0]["act_src_momentum"]
+    assert abs(float(src[..., 1].sum()) - 1e-4) < 1e-16
+    solver(ap)
+    assert not solver.solve_info.failed
+    assert np.all(np.isfinite(solver.solve_info.history))
 
 
 def test_port_imports_no_jax():

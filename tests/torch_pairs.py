@@ -37,12 +37,25 @@ CASES = {
              reynoldsLength=1.0, T=300.0, evalFuncs=["cd"]),
         "flatplate_mesh", dict(ni=16, nj=12)),
 }
+# the cases of the physics variants: the viscous wing with RANS, and the
+# channel (imin subsonic inflow, imax subsonic outflow, slip walls)
+VARIANT_CASES = dict(CASES, **{
+    "rans_wing": (
+        {"equationType": "RANS"},
+        dict(name="m6", mach=0.84, alpha=3.06, reynolds=11.72e6,
+             evalFuncs=["cl", "cd"]),
+        "wing_omesh", dict(ni=16, nj=8, nk=8, viscous=True)),
+    "channel": (
+        {"equationType": "euler"},
+        dict(name="ch", mach=0.3, alpha=0.0, evalFuncs=["mdot"]),
+        "channel_mesh", dict(ni=16, nj=8, nk=2)),
+})
 
 
 def solvers(case, ap_changes=None, **options):
     """(JAX solver, port solver) with the case's aero problem, changed by
     ``ap_changes``, set."""
-    opts, ap, mesh_fn, mesh_kw = CASES[case]
+    opts, ap, mesh_fn, mesh_kw = VARIANT_CASES[case]
     ap = dict(ap, **(ap_changes or {}))
     opts = dict(opts, **QUIET, **options)
     js = JaxADFLOW(options=opts,
@@ -63,16 +76,143 @@ def perturbed(w_flat, nw, seed=0, amp=1e-3):
             * rng.standard_normal(w.shape)).reshape(-1)
 
 
-def newton_pair(case, **options):
+def newton_pair(case, ap_changes=None, **options):
     """Both packages' solvers and Newton functions, and the seeded
     perturbed flat state."""
-    js, ts = solvers(case, **options)
+    js, ts = solvers(case, ap_changes, **options)
     jf = jax_newton.build_newton_fns(js.w_list, js.metrics_list, js.topo,
                                      js.cfg, js.ref, js.winf, js.extras_list)
     tf = newton.build_newton_fns(ts.w_list, ts.metrics_list, ts.topo,
                                  ts.cfg, ts.ref, ts.winf, ts.extras_list)
     w0 = perturbed(jf.packer.pack_w(js.w_list), jf.packer.nw)
     return js, ts, jf, tf, w0
+
+
+def variant_pair(case, ap_changes=None, **options):
+    """Both packages' solvers and Newton functions at the case's seeded
+    perturbed free stream, set as the solvers' states, and the halo-filled
+    states: a namespace of js, ts, jf, tf, w0 (flat numpy), wj and wt (the
+    filled block lists)."""
+    import types
+
+    js, ts, jf, tf, w0 = newton_pair(case, ap_changes, **options)
+    js.setStates(w0)
+    ts.setStates(w0)
+    return types.SimpleNamespace(js=js, ts=ts, jf=jf, tf=tf, w0=w0,
+                                 wj=js._filled_w(), wt=ts._filled_w())
+
+
+def flux_scale(w, metrics):
+    """The largest |p| times the largest interior face area of a filled
+    block (numpy or JAX arrays): the scale of a face flux."""
+    w = np.asarray(w)
+    p = 0.4 * (w[..., 4] - 0.5 * np.sum(w[..., 1:4] ** 2, axis=-1)
+               / w[..., 0])
+    smax = max(float(np.linalg.norm(np.asarray(s), axis=-1).max())
+               for s in (metrics.si, metrics.sj, metrics.sk))
+    return float(np.abs(p).max()) * smax
+
+
+def block_residual_pair(js, ts, wj, wt, cfg_changes=None, block=0):
+    """Both packages' ``block_residual`` of one filled block, with the
+    solvers' configurations changed by ``cfg_changes``: (JAX, port) as
+    numpy. The JAX side under ``jax.jit``, which compiles faster than its
+    op-by-op evaluation."""
+    import dataclasses
+
+    import jax
+
+    from adflow_torch.physics import residual as tres
+    from adflow_tpu.physics import residual as jres
+
+    cj = dataclasses.replace(js.cfg, **(cfg_changes or {}))
+    ct = dataclasses.replace(ts.cfg, **(cfg_changes or {}))
+    exj = js.extras_list[block] if js.extras_list else None
+    ext = ts.extras_list[block] if ts.extras_list else None
+    want = jax.jit(lambda w: jres.block_residual(
+        w, js.metrics_list[block], cj, js.ref, exj,
+        por=js.topo.blocks[block].por))(wj[block])
+    got = tres.block_residual(wt[block], ts.metrics_list[block], ct, ts.ref,
+                              ext, por=ts.topo.blocks[block].por)
+    return np.asarray(want), got.numpy()
+
+
+def check_flat_derivatives(pair, seed=0, tol=1e-10):
+    """The jvp and vjp of the whole residual (``res_flat``: halo fill and
+    every block) at a ``variant_pair``'s state, from seeded directions,
+    the JAX side under one ``jax.jit``: to ``tol`` relative. Returns the
+    two errors."""
+    import jax
+
+    w = pair.w0
+    rng = np.random.default_rng(seed)
+    v = rng.standard_normal(w.shape) * np.abs(w)
+    u = rng.standard_normal(w.shape)
+    res_j, res_t = pair.jf.res_flat, pair.tf.res_flat
+    jv_j, vj_j = jax.jit(lambda a, d, c: (
+        jax.jvp(res_j, (a,), (d,))[1], jax.vjp(res_j, a)[1](c)[0]))(
+        jnp.asarray(w), jnp.asarray(v), jnp.asarray(u))
+    wt = torch.from_numpy(w)
+    jv_t = torch.func.jvp(res_t, (wt,), (torch.from_numpy(v),))[1]
+    vj_t = torch.func.vjp(res_t, wt)[1](torch.from_numpy(u))[0]
+    assert bool(torch.isfinite(jv_t).all() and torch.isfinite(vj_t).all())
+    errs = rel(jv_j, jv_t.numpy()), rel(vj_j, vj_t.numpy())
+    assert max(errs) < tol, errs
+    return errs
+
+
+def check_block_derivatives(pair, cfg_changes=None, tol=1e-10, seed=3):
+    """The jvp and vjp of one filled block's ``block_residual`` (the halo
+    fill's are ``check_flat_derivatives``'), with the configuration
+    changed by ``cfg_changes``, from seeded directions; the JAX side under
+    one ``jax.jit``: to ``tol`` relative."""
+    import dataclasses
+
+    import jax
+
+    from adflow_torch.physics import residual as tres
+    from adflow_tpu.physics import residual as jres
+
+    js, ts = pair.js, pair.ts
+    cj = dataclasses.replace(js.cfg, **(cfg_changes or {}))
+    ct = dataclasses.replace(ts.cfg, **(cfg_changes or {}))
+    ex_j = js.extras_list[0] if js.extras_list else None
+    ex_t = ts.extras_list[0] if ts.extras_list else None
+    por_j, por_t = js.topo.blocks[0].por, ts.topo.blocks[0].por
+    mj, mt = js.metrics_list[0], ts.metrics_list[0]
+    wj, wt = pair.wj[0], pair.wt[0]
+    rng = np.random.default_rng(seed)
+    v = rng.standard_normal(wt.shape) * np.abs(wt.numpy())
+    u = rng.standard_normal(tuple(n - 4 for n in wt.shape[:3])
+                            + (wt.shape[-1],))
+
+    def fj(w):
+        return jres.block_residual(w, mj, cj, js.ref, ex_j, por=por_j)
+
+    def ft(w):
+        return tres.block_residual(w, mt, ct, ts.ref, ex_t, por=por_t)
+
+    jv_j, vj_j = jax.jit(lambda w, d, c: (
+        jax.jvp(fj, (w,), (d,))[1], jax.vjp(fj, w)[1](c)[0]))(
+        wj, jnp.asarray(v), jnp.asarray(u))
+    jv_t = torch.func.jvp(ft, (wt,), (torch.from_numpy(v),))[1]
+    vj_t = torch.func.vjp(ft, wt)[1](torch.from_numpy(u))[0]
+    errs = rel(jv_j, jv_t.numpy()), rel(vj_j, vj_t.numpy())
+    assert max(errs) < tol, errs
+    return errs
+
+
+def check_pc_apply(pair, tol=1e-10, seed=8):
+    """The port's line PC built at a ``variant_pair``'s state and CFL 7,
+    applied to a seeded vector, against the JAX package's."""
+    axes, kappa = newton._pc_params(pair.ts.options)
+    pj = pair.jf.build_pc(jnp.asarray(pair.w0), CFL, axes=axes, kappa=kappa)
+    pt = pair.tf.build_pc(torch.from_numpy(pair.w0), CFL, axes=axes,
+                          kappa=kappa)
+    v = np.random.default_rng(seed).standard_normal(pair.w0.shape)
+    want = jax_newton.pc_apply_vec(pj, pair.jf.packer, jnp.asarray(v))
+    got = newton.pc_apply_vec(pt, pair.tf.packer, torch.from_numpy(v))
+    assert rel(want, got.numpy()) < tol
 
 
 # -- one Newton step of both packages ---------------------------------------
@@ -111,6 +251,8 @@ def check_stats(want, got):
 def check_ank_step(pair, variant, options):
     """One ANK step of each package from the same state, PC data and CFL:
     the same stats and new state; returns the port's StepResult."""
+    if not isinstance(pair, tuple):
+        pair = (pair.js, pair.ts, pair.jf, pair.tf, pair.w0)
     js, ts, jf, tf, w0 = pair
     pj, pt = pc_pair(jf, w0, CFL, js)
     kw = dict(segregated=variant == "segregated", approx=variant == "approx")
@@ -139,9 +281,9 @@ FIXED_20 = {"adjointSubspaceSize": 20, "adjointMaxIter": 20,
             "adjointL2Convergence": 1e-14}
 
 
-def adjoint_pair(case, **options):
+def adjoint_pair(case, ap_changes=None, **options):
     """Both packages' solvers with the case's seeded perturbed state set."""
-    js, ts = solvers(case, **options)
+    js, ts = solvers(case, ap_changes, **options)
     w0 = perturbed(np.asarray(js._wx_vecs()[0]), ts._newton_packer().nw)
     js.setStates(w0)
     ts.setStates(w0)
