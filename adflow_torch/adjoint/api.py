@@ -6,7 +6,9 @@ adjointAPI.F90:661 solveAdjoint).
 - reverse products: ``torch.func.vjp`` of ``res``, built once per adjoint
   solve and called once per GMRES iteration;
 - the adjoint solve: matrix-free GMRES on dR/dw^T psi = dI/dw with the
-  transposed block line-implicit preconditioner.
+  transposed block line-implicit preconditioner, or with
+  ``adjointGlobalPreconditioner: 'multigrid'`` the transposed Galerkin
+  stencil multigrid (solvers/amg.py).
 
 The residual and the functions are traced as R(w, x, params) and
 I(w, x, params), with params the design variables {alpha, beta, mach, T,
@@ -32,9 +34,8 @@ package's ``traced_winf`` appends nu_tilde_inf and 1.0 there instead, so
 its adjoint linearizes a residual whose far-field ghosts differ from the
 one its primal solved; the port linearizes the primal's residual.
 
-Not ported: the multigrid adjoint PC (ROADMAP.md queue 1 item 10), and
-user surfaces, overset iblank, the zipper, patch weights and cp targets
-(item 11).
+Not ported: user surfaces, overset iblank, the zipper, patch weights and
+cp targets (ROADMAP.md queue 1 item 11).
 """
 
 from __future__ import annotations
@@ -55,12 +56,6 @@ from adflow_torch.solvers.krylov import GmresResult, gmres
 # The PC's pseudo-CFL: the same large regularization NK uses (the JAX
 # package's _transposed_line_pc and solveDirectForRHS).
 PC_CFL = 1e6
-
-
-def _todo(what: str, item: str):
-    return NotImplementedError(
-        f"{what} is not ported to adflow_torch yet (ROADMAP.md queue 1 "
-        f"item {item})")
 
 
 def traced_reference_state(base: ReferenceState, params) -> ReferenceState:
@@ -253,9 +248,31 @@ def solve_adjoint_system(fns: AdjointFns, solver, wvec, xvec, params, rhs,
 
 
 def _transposed_amg_pc(nfns, solver, wvec):
-    """M^-T by the Galerkin stencil multigrid: not ported."""
-    raise _todo("adjointGlobalPreconditioner='multigrid' (the transposed "
-                "AMG preconditioner)", "10")
+    """M^-T by the Galerkin stencil multigrid with every level transposed
+    (adjointGlobalPreconditioner='multigrid'; Galerkin commutes with the
+    transpose for R = P^T, solvers/amg.py stencil_transpose), built once
+    at the PC's pseudo-CFL from the solver's metrics and options, as in the
+    JAX package."""
+    from adflow_torch.solvers.amg import amg_pc_apply, build_amg_pc
+
+    opt = solver.options
+    axes = opt["linePCAxes"]
+    axes = (1, 0, 2) if (axes == "auto" or axes is None) else tuple(axes)
+    w_list, rs_list = nfns.rad_sum_cells(wvec)
+    data_list = [
+        build_amg_pc(w, m, solver.cfg, solver.ref, dtinv=rs / PC_CFL,
+                     levels=int(opt["adjointAMGLevels"]),
+                     n_smooth=int(opt["adjointAMGNSmooth"]),
+                     axes=axes, kappa=float(opt["linePCKappa"]),
+                     transpose=True)
+        for w, m, rs in zip(w_list, solver.metrics_list, rs_list)]
+
+    def precond(v):
+        vb = nfns.packer.unpack(v)
+        return nfns.packer.pack(
+            [amg_pc_apply(d, vv) for d, vv in zip(data_list, vb)])
+
+    return precond
 
 
 def _transposed_line_pc(nfns, wvec):

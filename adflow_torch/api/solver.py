@@ -1,17 +1,21 @@
 """The user-facing solver class (counterpart of adflow_tpu/api/solver.py;
 reference class ``ADFLOW``, adflow/pyADflow.py:60).
 
-The port runs the steady branches of ``__call__``: the ANK/NK driver
-(the default, solvers/newton.py) and the Runge-Kutta smoother
-(``useANKSolver: False, useNKSolver: False``); ``evalFunctions``, residual
-and state access; and the discrete adjoint (adjoint/api.py):
-``solveAdjoint``, ``evalFunctionsSens``,
+The port runs every solver branch of ``__call__``: the ANK/NK driver (the
+default, solvers/newton.py) with the line or the multigrid (AMG) global
+preconditioner; the Runge-Kutta and DADI smoothers
+(``useANKSolver: False, useNKSolver: False``); FAS multigrid
+(``MGCycle`` '2w', '3v', '3w', ...) and the full-multigrid start
+(``MGStartLevel``); ``equationMode`` 'unsteady' (BDF dual time and
+explicit RK4) and 'time spectral' with its stability derivatives. Besides:
+``evalFunctions``, residual and state access; and the discrete adjoint
+(adjoint/api.py): ``solveAdjoint``, ``evalFunctionsSens``,
 ``computeJacobianVectorProductFwd/Bwd``, ``solveAdjointForRHS`` and
 ``solveDirectForRHS``, which take numpy arrays or tensors and return numpy
 arrays, as the JAX package's do. The solver runs on ``cuda:0`` unless the
 caller passes another device (the tests pass ``device="cpu"``); it never
-falls back to the CPU on its own. Every branch and option that is not
-ported yet raises ``NotImplementedError`` naming its ROADMAP.md item.
+falls back to the CPU on its own. What is not ported yet (overset, several
+devices, I/O) raises ``NotImplementedError`` naming its ROADMAP.md item.
 """
 
 from __future__ import annotations
@@ -198,8 +202,6 @@ class ADFLOW:
             raise _todo("meshDevices > 1", "12")
         if opt["restartFile"]:
             raise _todo("restart files", "13")
-        if opt["smoother"].lower().startswith("dadi"):
-            raise _todo("the DADI smoother", "10")
 
     # ------------------------------------------------------------------
     def _check_volumes(self):
@@ -335,13 +337,13 @@ class ADFLOW:
 
     # ------------------------------------------------------------------
     def __call__(self, ap: AeroProblem, **kwargs):
-        """Solve the steady problem (reference: ADFLOW.__call__:1185)."""
+        """Solve (reference: ADFLOW.__call__:1185). ``nTimeSteps`` overrides
+        nTimeStepsFine for 'unsteady'; ``alphaAmplitude`` (degrees, else
+        the problem's ``deltaAlpha``) pitches the 'time spectral'
+        instances."""
         self.setAeroProblem(ap)
         opt = self.options
         t0 = time.time()
-        mode = opt["equationMode"].lower()
-        if mode != "steady":
-            raise _todo(f"equationMode {mode!r}", "10")
         if opt["jaxProfileDir"]:
             raise _todo("the profiler hook 'jaxProfileDir'", "13")
 
@@ -353,11 +355,18 @@ class ADFLOW:
         tl = float(opt["timeLimit"])
         deadline = (t0 + tl) if tl > 0.0 else None
 
+        mode = opt["equationMode"].lower()
+        if mode == "unsteady":
+            self._solve_unsteady(ap, opt, kwargs, t0)
+            return
+        if mode == "time spectral":
+            self._solve_time_spectral(ap, opt, kwargs, t0, monitor)
+            return
+
         self._fmg_start(opt)
         use_nk = bool(opt["useNKSolver"])
         use_ank = bool(opt["useANKSolver"])
         if use_nk or use_ank:
-            self._reject_unported_newton(opt, use_ank, use_nk)
             from adflow_torch.solvers.newton import solve_newton_driver
             self.w_list, info = solve_newton_driver(
                 self.w_list, self.metrics_list, self.topo, self.cfg,
@@ -365,7 +374,20 @@ class ADFLOW:
                 monitor=monitor, deadline=deadline,
                 mixed_data=self._mixed_data())
         elif str(opt["MGCycle"]).lower() not in ("sg", "none", ""):
-            raise _todo(f"multigrid cycle {opt['MGCycle']!r}", "10")
+            from adflow_torch.solvers.multigrid import solve_mg
+            self.w_list, info = solve_mg(
+                self.w_list, self.mesh, self.x_list, self.topo, self.cfg,
+                self.ref, self.winf, mg_cycle=str(opt["MGCycle"]),
+                cfl=float(opt["CFL"]), n_cycles=int(opt["nCycles"]),
+                l2_conv=float(opt["L2Convergence"]),
+                l2_conv_rel=float(opt["L2ConvergenceRel"]),
+                monitor=monitor,
+                n_pre=int(opt["nMGFine"]), n_post=int(opt["nMGCoarse"]),
+                cfl_coarse=float(opt["CFLCoarse"]),
+                res_averaging=str(opt["resAveraging"]),
+                smooth_param=float(opt["smoothParameter"]),
+                deadline=deadline, vis2_coarse=float(opt["vis2Coarse"]),
+                coarse_disc=str(opt["coarseDiscretization"]))
         else:
             self.w_list, info = steady.solve_rk(
                 self.w_list, self.metrics_list, self.topo, self.cfg,
@@ -384,14 +406,83 @@ class ADFLOW:
                   f"({info.iterations} iterations, "
                   f"R {info.total_r0:.3e} -> {info.total_r_final:.3e})")
 
-    @staticmethod
-    def _reject_unported_newton(opt, use_ank, use_nk):
-        """The parts of the ANK/NK branch that are not ported yet."""
-        if ((use_ank and str(opt["ANKGlobalPreconditioner"]).lower()
-             == "multigrid")
-                or (use_nk and str(opt["NKGlobalPreconditioner"]).lower()
-                    == "multigrid")):
-            raise _todo("the multigrid (AMG) global preconditioner", "10")
+    def _solve_unsteady(self, ap, opt, kwargs, t0):
+        """The time-accurate branch: BDF dual time or explicit RK4 from the
+        current state. Sets ``unsteady_info`` (not ``solve_info``) and, as
+        in the JAX package, returns before the full-multigrid start and
+        leaves ``_fresh_state`` as it was."""
+        from adflow_torch.solvers.unsteady import (
+            solve_unsteady_bdf, solve_unsteady_explicit_rk)
+        n_steps = int(kwargs.get("nTimeSteps", opt["nTimeStepsFine"]))
+        if opt["timeIntegrationScheme"].lower().startswith("bdf"):
+            self.w_list, uinfo = solve_unsteady_bdf(
+                self.w_list, self.metrics_list, self.topo, self.cfg,
+                self.ref, self.winf, n_steps=n_steps,
+                dt=float(opt["deltaT"]), order=int(opt["timeAccuracy"]),
+                extras_list=self.extras_list, cfl=float(opt["CFL"]))
+        else:
+            self.w_list, uinfo = solve_unsteady_explicit_rk(
+                self.w_list, self.metrics_list, self.topo, self.cfg,
+                self.ref, self.winf, n_steps=n_steps,
+                dt=float(opt["deltaT"]), extras_list=self.extras_list)
+        self.unsteady_info = uinfo
+        ap.solveFailed = ap.fatalFail = bool(uinfo.failed)
+        if opt["printTiming"]:
+            print(f"  unsteady: {uinfo.n_steps} steps to "
+                  f"t={uinfo.times[-1]:.4f}, wall {time.time() - t0:.2f} s")
+
+    def _solve_time_spectral(self, ap, opt, kwargs, t0, monitor):
+        """The time-spectral branch: ``timeIntervals`` instances from their
+        own free streams, pitched in alpha. Keeps ``ts_states`` and
+        ``ts_refs``, leaves ``w_list`` as instance 0 and, with a pitch and
+        omegaFourier > 0, the stability derivatives for
+        ``evalFunctions``."""
+        from adflow_torch.solvers.timespectral import (
+            instance_refstates, solve_time_spectral, stability_derivatives)
+        n_inst = int(opt["timeIntervals"])
+        omega = float(opt["omegaFourier"])
+        amp = float(kwargs.get("alphaAmplitude",
+                               getattr(ap, "deltaAlpha", 0.0)))
+        refs, period = instance_refstates(ap, n_inst, omega, amp,
+                                          int(opt["liftIndex"]),
+                                          self.cfg.n_turb)
+        winfs = [torch.as_tensor(r.winf(), dtype=self.dtype,
+                                 device=self.device) for r in refs]
+        w_inst = [[wq.expand(tuple(d + 4 for d in b.dims)
+                             + (self.ref.nw,)).clone()
+                   for b in self.mesh.blocks] for wq in winfs]
+        w_inst, info = solve_time_spectral(
+            w_inst, self.metrics_list, self.topo, self.cfg, refs, winfs,
+            period, extras_list=self.extras_list, cfl=float(opt["CFL"]),
+            n_cycles=int(opt["nCycles"]),
+            l2_conv=float(opt["L2Convergence"]), monitor=monitor)
+        self.ts_states = w_inst
+        self.ts_refs = refs
+        self.w_list = w_inst[0]
+        self.solve_info = info
+        # the stability derivatives (reference inputTSStabDeriv TSAlphaMode
+        # cost functions cl0/clalpha/clalphadot/...): cl, cd and cmz per
+        # instance, Fourier-fit against alpha(t)
+        self._ts_stab = None
+        if amp > 0.0 and omega > 0.0 and not info.failed:
+            coeffs = {"cl": [], "cd": [], "cmz": []}
+            for q in range(n_inst):
+                wfq = fill_halos(w_inst[q], self.metrics_list, self.topo,
+                                 refs[q], winfs[q])
+                cq = cost_functions(integrate_forces(
+                    wfq, self.x_list, self.metrics_list, self.wall_patches,
+                    refs[q], self.cfg, extras_list=self.extras_list),
+                    refs[q])
+                for k in coeffs:
+                    coeffs[k].append(float(cq[k]))
+            self._ts_stab = stability_derivatives(
+                coeffs, [r.alpha for r in refs], omega, period, ap.mach,
+                ap.chordRef)
+        ap.solveFailed = ap.fatalFail = bool(info.failed)
+        if opt["printTiming"]:
+            print(f"  time spectral: {n_inst} instances, "
+                  f"{info.iterations} iters, R {info.total_r0:.3e} -> "
+                  f"{info.total_r_final:.3e}, wall {time.time() - t0:.2f} s")
 
     def _mixed_data(self):
         """f64 companions for the f64 continuation of precision='mixed'
@@ -419,19 +510,64 @@ class ADFLOW:
         return metrics64, winf64, extras64
 
     def _fmg_start(self, opt):
-        """Full-multigrid start (reference: solvers.F90:63). With the
-        single-grid 'sg' cycle and MGStartLevel -1 (the defaults) there is
-        nothing to do; a coarser start level is not ported."""
+        """Full-multigrid start (reference: the mgStartLevel groundLevel
+        loop, solvers.F90:63, and the transfer transferToFineGrid:326):
+        converge cheap agglomerated coarse problems with the Newton driver
+        (the nCyclesCoarse / L2ConvergenceCoarse budgets) and prolong the
+        result as the fine grid's initial state. Runs only from a uniform
+        free-stream state (MGStartLevel 1 disables it; -1 starts at the
+        coarsest level of the MGCycle, so never with 'sg').
+
+        As in the JAX package, the coarse solves run the fine level's
+        configuration (not the coarse-level scheme), so the residual
+        kernels launch on the coarse meshes, and the levels are
+        ``build_mg_levels``' (mirrored ghost metrics, no wallDistCutoff)."""
         lvl_opt = int(opt["MGStartLevel"])
         if lvl_opt == 1 or not getattr(self, "_fresh_state", False):
             return
-        if lvl_opt < 0:
-            cyc = str(opt["MGCycle"]).strip().lower()
-            want = 1 if cyc in ("sg", "", "none", "1") else int(cyc[:-1])
-        else:
-            want = max(lvl_opt, 1)
-        if want >= 2:
-            raise _todo("the full-multigrid start", "10")
+        from adflow_torch.solvers.multigrid import (
+            build_mg_levels, parse_mg_cycle, prolong_correction)
+        from adflow_torch.solvers.newton import solve_newton_driver
+        from adflow_torch.solvers.smoothers import _with_interior
+
+        want = (parse_mg_cycle(str(opt["MGCycle"]))[0] if lvl_opt < 0
+                else max(lvl_opt, 1))
+        if want < 2:
+            return
+        try:
+            levels = build_mg_levels(self.mesh, self.x_list, self.cfg, want)
+        except ValueError:
+            return
+        if len(levels) < 2:
+            return
+        sub = opt.replace(nCycles=int(opt["nCyclesCoarse"]),
+                          L2Convergence=float(opt["L2ConvergenceCoarse"]),
+                          printIterations=False)
+        nw = self.ref.nw
+
+        def fresh(level):
+            return [self.winf.expand(tuple(d + 4 for d in bs.dims) + (nw,))
+                    .clone() for bs in level.topo.blocks]
+
+        self.fmg_info = []
+        w_c = None
+        for li in range(len(levels) - 1, 0, -1):
+            level = levels[li]
+            if w_c is None:
+                w_c = fresh(level)
+            w_c, info_c = solve_newton_driver(
+                w_c, list(level.metrics_list), level.topo, self.cfg,
+                self.ref, self.winf, sub,
+                extras_list=(list(level.extras_list)
+                             if level.extras_list else None))
+            self.fmg_info.append(info_c)
+            if info_c.failed:
+                return   # keep the free-stream state
+            fine = levels[li - 1]
+            w_c = [_with_interior(wf, prolong_correction(
+                       w_c[i][2:-2, 2:-2, 2:-2], fine.factors[i]))
+                   for i, wf in enumerate(fresh(fine))]
+        self.w_list = w_c
 
     def addActuatorRegion(self, axis1, axis2, radius: float,
                           familyName: str = "actuator",
@@ -509,6 +645,8 @@ class ADFLOW:
             f.update(flow_through(wf, self.metrics_list, self.flow_patches,
                                   self.ref))
         all_funcs = cost_functions(f, self.ref)
+        if getattr(self, "_ts_stab", None):
+            all_funcs.update(self._ts_stab)
         for name in evalFuncs:
             key = name.lower()
             if key in all_funcs:

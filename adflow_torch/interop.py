@@ -50,6 +50,36 @@ def line_pc_from_numpy(axes, mean, turb, dscalar, turb_scale=None,
                         None if turb_scale is None else tuple(turb_scale))
 
 
+def amg_pc_from_numpy(line, ops, factors, axis, n_smooth, coarse_damp=0.6,
+                      transposed=False, device="cpu", dtype=torch.float64):
+    """The port's ``AMGPCData`` from the fields of the JAX package's one
+    (as numpy): ``line`` the keyword arguments of ``line_pc_from_numpy``
+    (axes, mean, turb, dscalar, turb_scale) for its line PC, ``ops`` one
+    dict per level with the ``StencilOp`` fields D, L, U, Dt, Lt, Ut
+    (tuples per axis, or None) and turb_scale."""
+    from adflow_torch.solvers.amg import AMGPCData, StencilOp
+
+    def opt(a):
+        return None if a is None else _tensor(a, device, dtype)
+
+    def per_axis(t):
+        return None if t is None else tuple(_tensor(a, device, dtype)
+                                            for a in t)
+
+    stencils = tuple(StencilOp(
+        D=_tensor(op["D"], device, dtype), L=per_axis(op["L"]),
+        U=per_axis(op["U"]), Dt=opt(op.get("Dt")),
+        Lt=per_axis(op.get("Lt")), Ut=per_axis(op.get("Ut")),
+        turb_scale=(None if op.get("turb_scale") is None
+                    else tuple(op["turb_scale"])))
+        for op in ops)
+    return AMGPCData(
+        line=line_pc_from_numpy(**line, device=device, dtype=dtype),
+        ops=stencils, factors=tuple(tuple(f) for f in factors),
+        axis=int(axis), n_smooth=int(n_smooth),
+        coarse_damp=float(coarse_damp), transposed=bool(transposed))
+
+
 def refstate_from_dict(fields) -> ReferenceState:
     """A ``ReferenceState`` from the fields of the JAX package's one
     (``dataclasses.asdict(ref)``); array fields become numpy arrays."""

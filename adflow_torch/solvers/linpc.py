@@ -325,14 +325,18 @@ def _turb_unscale(data: LinePCData, like):
                         device=like.device)
 
 
-def line_pc_apply(data: LinePCData, v):
+def line_pc_apply(data: LinePCData, v, skip_scale: bool = False):
     """Apply M^-1 v on one block, v: (ni,nj,nk,nw).
 
     Multiple axes compose as an approximate factorization
     M = (D+A_1) D^-1 (D+A_2) D^-1 ... with the full diagonal D in every
-    factor."""
+    factor.
+
+    skip_scale: the caller works in the unscaled (physical) residual space
+    and handles the turbResScale rows itself (solvers/amg.py)."""
     z = v
-    if data.turb_scale is not None and v.shape[-1] > 5:
+    if (not skip_scale and data.turb_scale is not None
+            and v.shape[-1] > 5):
         # PC = S*T on the scaled turbulence rows: un-scale the input once,
         # then apply the unscaled factors
         z = z * _turb_unscale(data, v)
@@ -348,7 +352,7 @@ def line_pc_apply(data: LinePCData, v):
     return z
 
 
-def line_pc_apply_transposed(data: LinePCData, v):
+def line_pc_apply_transposed(data: LinePCData, v, skip_scale: bool = False):
     """Apply M^-T v on one block, v: (ni,nj,nk,nw) (the adjoint's PC).
 
     M^-1 = T_n^-1 D ... D T_1^-1 S^-1 (``line_pc_apply``), so M^-T =
@@ -356,7 +360,8 @@ def line_pc_apply_transposed(data: LinePCData, v):
     order of the axes, each from the transposes of the stored factors
     (``block_tridiag_solve_factored_transposed``,
     ``dadi.tridiag_solve_factored_transposed``), and the turbulence rows'
-    un-scale after the solves."""
+    un-scale after the solves (unless ``skip_scale``, as in
+    ``line_pc_apply``)."""
     z = v
     for i in reversed(range(len(data.axes))):
         ax = data.axes[i]
@@ -369,6 +374,7 @@ def line_pc_apply_transposed(data: LinePCData, v):
         z = torch.movedim(zl, 0, ax)
         if i > 0:
             z = z * data.dscalar[..., None]
-    if data.turb_scale is not None and z.shape[-1] > 5:
+    if (not skip_scale and data.turb_scale is not None
+            and z.shape[-1] > 5):
         z = z * _turb_unscale(data, z)
     return z

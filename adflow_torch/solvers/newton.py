@@ -13,8 +13,10 @@ The Jacobian-vector product is an exact ``torch.func.jvp`` through the one
 residual; on the card in float32 it runs through the residual kernels'
 ``autograd.Function``s (ops/cuda_rans.py, ops/cuda_inviscid.py), whose jvp
 evaluates the plain version while the primal launches the kernel. The PC is
-the line-implicit preconditioner (solvers/linpc.py), built outside the step
-and lagged.
+the line-implicit preconditioner (solvers/linpc.py) or, with
+``ANKGlobalPreconditioner`` / ``NKGlobalPreconditioner`` 'multigrid', the
+Galerkin stencil multigrid around it (solvers/amg.py), built outside the
+step and lagged.
 
 Each step returns its stats vector (7 entries for ANK, 5 for NK, the JAX
 package's layout) as one device tensor, which the driver copies to the host
@@ -26,9 +28,6 @@ With ``precision='mixed'`` the f32 phases hand over to an f64
 continuation: the same driver re-entered in float64 from the f32 state,
 with f64 metrics and free stream (``mixed_data``). It runs the plain
 residual, as the kernels are f32 only.
-
-Not ported: the multigrid (AMG) global preconditioner (ROADMAP.md queue 1
-item 10).
 """
 
 from __future__ import annotations
@@ -115,12 +114,21 @@ class StepRecord(NamedTuple):
     #                        continuation of precision='mixed'
 
 
-def pc_apply_vec(pc_data, packer: Packer, v):
-    """M^-1 v on the packed vector from per-block lagged line-PC data."""
+def _pc_apply_block(data, v):
+    """Apply one block's PC data, line or multigrid, by its type."""
+    from adflow_torch.solvers.amg import AMGPCData, amg_pc_apply
     from adflow_torch.solvers.linpc import line_pc_apply
 
+    if isinstance(data, AMGPCData):
+        return amg_pc_apply(data, v)
+    return line_pc_apply(data, v)
+
+
+def pc_apply_vec(pc_data, packer: Packer, v):
+    """M^-1 v on the packed vector from per-block lagged PC data."""
     vb = packer.unpack(v)
-    return packer.pack([line_pc_apply(d, vv) for d, vv in zip(pc_data, vb)])
+    return packer.pack([_pc_apply_block(d, vv)
+                        for d, vv in zip(pc_data, vb)])
 
 
 def build_newton_fns(template_w_list, metrics_list, topo: MeshTopology,
@@ -185,12 +193,17 @@ def build_newton_fns(template_w_list, metrics_list, topo: MeshTopology,
     def build_pc(wvec, cfl, axes=(1, 0, 2), kappa=1.0,
                  pc_kind: str = "line", amg_levels: int = 2,
                  amg_nsmooth: int = 1):
-        """Per-block line-PC data for (V/dt + dR/dw), built outside the
-        steps and lagged (NKJacobianLag)."""
+        """Per-block PC data for (V/dt + dR/dw): line-implicit
+        (solvers/linpc.py) or the Galerkin stencil multigrid
+        (solvers/amg.py, *GlobalPreconditioner='multigrid'), built outside
+        the steps and lagged (NKJacobianLag)."""
         if pc_kind == "multigrid":
-            raise NotImplementedError(
-                "the multigrid (AMG) global preconditioner (ROADMAP.md "
-                "queue 1 item 10)")
+            from adflow_torch.solvers.amg import build_amg_pc
+            w_list, rs_list = rad_sum_cells(wvec)
+            return [build_amg_pc(w, m, cfg, ref, dtinv=rs / cfl,
+                                 levels=amg_levels, n_smooth=amg_nsmooth,
+                                 axes=axes, kappa=kappa)
+                    for w, m, rs in zip(w_list, metrics_list, rs_list)]
         return collect_pc_data(wvec, cfl, axes, kappa)
 
     w0 = template_w_list[0]

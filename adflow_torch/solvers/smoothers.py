@@ -1,13 +1,21 @@
-"""Explicit multistage Runge-Kutta smoother (counterpart of
-adflow_tpu/solvers/smoothers.py; reference RungeKuttaSmoother /
-executeRkStage, src/solver/smoothers.F90:4,90): 5-stage scheme with local
-time stepping, the full residual evaluated per stage.
+"""The smoothers (counterpart of adflow_tpu/solvers/smoothers.py):
+
+- the explicit multistage Runge-Kutta smoother (reference
+  RungeKuttaSmoother / executeRkStage, src/solver/smoothers.F90:4,90):
+  5-stage scheme with local time stepping, the full residual evaluated per
+  stage;
+- the DADI smoother (reference DADISmoother / executeDADIStep,
+  smoothers.F90:383,425): one implicit update through the three-axis line
+  preconditioner of solvers/linpc.py, as the JAX package runs it;
+- implicit residual averaging (residuals.F90:1785), which multigrid's
+  smoother applies at every stage.
 """
 
 from __future__ import annotations
 
 from typing import Sequence
 
+import numpy as np
 import torch
 
 from adflow_torch.physics.residual import (
@@ -16,6 +24,50 @@ from adflow_torch.physics.thermo import pressure
 from adflow_torch.physics.timestep import local_timestep
 
 RK_COEFFS = (0.25, 1.0 / 6.0, 0.375, 0.5, 1.0)  # JST 5-stage (smoothers.F90)
+
+
+def _averaging_factors(n: int, eps: float):
+    """The forward-elimination factors (g, denom, cp) of the constant
+    tridiagonal (-eps, 1 + 2 eps, -eps) of length n, its end rows
+    (1 + eps) and no coupling past the ends, as ``dadi.tridiag_factor``
+    computes them: host (numpy, float64) work, since the coefficients are
+    the same for every line."""
+    lo = np.full(n, -eps)
+    up = np.full(n, -eps)
+    dg = np.full(n, 1.0 + 2.0 * eps)
+    lo[0] = up[-1] = 0.0
+    dg[0] = dg[-1] = 1.0 + eps
+    g, den, cp = np.empty(n), np.empty(n), np.empty(n)
+    cp_prev = 0.0
+    for c in range(n):
+        den[c] = dg[c] - lo[c] * cp_prev
+        g[c] = lo[c] / den[c]
+        cp[c] = cp_prev = up[c] / den[c]
+    return g, den, cp
+
+
+def residual_averaging(r, eps: float):
+    """Implicit residual smoothing: (I - eps d^2)^-1 r per direction
+    (reference: residualAveraging, residuals.F90:1785), which extends the
+    RK stability region so multigrid can run a higher CFL on stretched
+    meshes. r: (ni, nj, nk, nv); a constant coefficient eps. The JAX
+    package runs a Thomas recurrence over full coefficient arrays; here the
+    line's factors are computed once on the host (they are the same for
+    every line), and a solve is one multiply-add per cell along the line
+    in each direction, which changes the result by round-off only."""
+    from adflow_torch.solvers.dadi import tridiag_solve_factored
+    for axis in range(3):
+        n = r.shape[axis]
+        if n < 3:
+            continue
+        shape = (n,) + (1,) * (r.dim() - 2)
+        factors = [torch.as_tensor(a, dtype=r.dtype, device=r.device)
+                   .reshape(shape).expand((n,) + tuple(
+                       d for i, d in enumerate(r.shape[:-1]) if i != axis))
+                   for a in _averaging_factors(n, eps)]
+        rm = torch.movedim(r, axis, 0)
+        r = torch.movedim(tridiag_solve_factored(factors, rm), 0, axis)
+    return r
 
 
 def residual_norms(r_list: Sequence[torch.Tensor], n_mean: int = 5):
@@ -93,3 +145,44 @@ def rk_iteration(w_list, metrics_list, topo: MeshTopology, cfg: ProblemConfig,
             new.append(_with_interior(w0, upd))
         wk_list = fill_halos(new, metrics_list, topo, ref, winf)
     return wk_list, r0_list
+
+
+def dadi_iteration(w_list, metrics_list, topo: MeshTopology,
+                   cfg: ProblemConfig, ref, winf, cfl, extras_list=None):
+    """One diagonalized-ADI implicit smoother iteration on all blocks
+    (reference DADISmoother / executeDADIStep, smoothers.F90:383,425): the
+    factored update (D + A_i)(D + A_j)(D + A_k) dz = R with D = V/dt, whose
+    factors are the line-implicit operators of solvers/linpc.py (the exact
+    signed 5x5 flux Jacobians with the spectral-radius split, along all
+    three axes), as in the JAX package. One residual evaluation a block an
+    iteration. The same in/out contract as ``rk_iteration``; the scaled
+    turbulence rows are handled by the PC itself."""
+    from adflow_torch.physics.fluxes import spectral_radii
+    from adflow_torch.physics.timestep import viscous_spectral_radii
+    from adflow_torch.solvers.linpc import build_line_pc, line_pc_apply
+
+    w0_list = fill_halos(w_list, metrics_list, topo, ref, winf)
+    r_list = [block_residual(w, m, cfg, ref,
+                             extras_list[i] if extras_list else None,
+                             por=topo.blocks[i].por)
+              for i, (w, m) in enumerate(zip(w0_list, metrics_list))]
+    new = []
+    for i, (w, m, r) in enumerate(zip(w0_list, metrics_list, r_list)):
+        p = torch.clamp(pressure(w), min=1e-10)
+        rI, rJ, rK = spectral_radii(w, p, m, cfg.ls_precon_mach)
+        rs = (rI + rJ + rK)[1:-1, 1:-1, 1:-1]
+        if cfg.viscous:
+            rv = viscous_spectral_radii(w, m, cfg, ref)
+            rs = rs + 4.0 * (rv[0] + rv[1] + rv[2])
+        dtinv = rs / cfl                           # V/dt per cell
+        if r.shape[-1] > 5 and cfg.turbulence_model == "sa" and extras_list:
+            # fold the stiff SA destruction diagonal into the turbulence
+            # rows (the PC's turbulence operator has only advection + dt)
+            from adflow_torch.physics.sa import sa_destruction_diag
+            diag = sa_destruction_diag(w, m, extras_list[i]["walldist"])
+            rt = r[..., 5:] / (1.0 + diag / dtinv)[..., None]
+            r = torch.cat([r[..., :5], rt], dim=-1)
+        data = build_line_pc(w, m, cfg, ref, dtinv, axes=(0, 1, 2))
+        new.append(_with_interior(w, w[2:-2, 2:-2, 2:-2]
+                                  - line_pc_apply(data, r)))
+    return new, r_list

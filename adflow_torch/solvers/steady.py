@@ -16,7 +16,8 @@ from typing import Callable, NamedTuple, Optional
 import numpy as np
 import torch
 
-from adflow_torch.solvers.smoothers import residual_norms, rk_iteration
+from adflow_torch.solvers.smoothers import (
+    dadi_iteration, residual_norms, rk_iteration)
 
 
 class SolveInfo(NamedTuple):
@@ -38,13 +39,17 @@ def solve_rk(w_list, metrics_list, topo, cfg, ref, winf,
              total_r0: Optional[float] = None,
              smoother: str = "runge-kutta",
              deadline: Optional[float] = None):
-    """Explicit RK smoother to steady state. Returns (w_list, SolveInfo).
+    """Explicit RK or DADI smoother to steady state. Returns (w_list,
+    SolveInfo).
 
+    smoother: 'runge-kutta' (RK5, smoothers.rk_iteration) or 'dadi'
+    (diagonalized ADI, smoothers.dadi_iteration — reference DADISmoother,
+    smoothers.F90:383).
     deadline: absolute time.time() after which the loop stops (reference:
     timeLimit option checked in solvers.F90:1136)."""
-    if smoother.lower().startswith("dadi"):
-        raise NotImplementedError("DADI smoother (ROADMAP.md queue 1 "
-                                  "item 10)")
+    dadi = smoother.lower().startswith("dadi")
+    iteration = dadi_iteration if dadi else rk_iteration
+    itertype = "DADI" if dadi else "RK"
     hist_all = []
     it = 0
     r0 = total_r0
@@ -52,8 +57,8 @@ def solve_rk(w_list, metrics_list, topo, cfg, ref, winf,
     while it < n_cycles:
         rows = []
         for _ in range(chunk):
-            w_list, r_list = rk_iteration(w_list, metrics_list, topo, cfg,
-                                          ref, winf, cfl, extras_list)
+            w_list, r_list = iteration(w_list, metrics_list, topo, cfg,
+                                       ref, winf, cfl, extras_list)
             rows.append(torch.stack(residual_norms(r_list)))
         hist = torch.stack(rows).double().cpu().numpy()
         hist_all.append(hist)
@@ -63,7 +68,7 @@ def solve_rk(w_list, metrics_list, topo, cfg, ref, winf,
         rnow = float(hist[-1, 0])
         if monitor:
             monitor(it, rnow, float(hist[-1, 1]), w_list=w_list, cfl=cfl,
-                    itertype="RK")
+                    itertype=itertype)
         if not np.isfinite(rnow):
             failed = True
             break

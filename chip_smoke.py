@@ -37,7 +37,7 @@ well). Then, each phase timed:
            counted; the transposed PC's build and apply and one vjp
            matvec timed; the dot-product identity at full width; three
            adjoint GMRES iterations under torch.profiler;
-  [17]     matrix dissipation on the main path's wing: 2 ANK steps from the
+  [17]     matrix dissipation on the main path's wing: 1 ANK step from the
            free stream with the characteristic line PC, exactly no kernel
            launch; the PC's build and apply, a jvp matvec, the upwind (Roe,
            van Albada) residual and its jvp timed; the peak device memory;
@@ -54,7 +54,7 @@ well). Then, each phase timed:
            answer against a float64 solve on the CPU (a process of its
            own, run meanwhile);
   [20]     SST on the main path's mesh, viscous (RANS at the RK path's
-           conditions): 2 ANK steps from the free stream, K2 for every
+           conditions): 1 ANK step from the free stream, K2 for every
            residual evaluation and no K1 launch; one SST residual, a jvp
            matvec, the 7-equation line PC timed; the peak device memory;
            one jvp matvec and one PC apply under torch.profiler;
@@ -64,7 +64,24 @@ well). Then, each phase timed:
            grid motion and the low-speed preconditioner with no kernel
            (their residuals and one ANK step each), actuator sources on
            the channel through K2, and ``evalFunctionsSens`` of cl in
-           rotRate, rotCenter and machGrid on the Euler wing.
+           rotRate, rotCenter and machGrid on the Euler wing;
+  [22]     the other solvers at full width: the full-multigrid start and
+           10 '3w' FAS cycles of the RK path's 256x64x64 RANS-SA wing
+           (K1 exactly on the fine level's evaluations and the start's
+           coarse solves, K2 never), one cycle profiled; then the DADI
+           smoother on the same wing, one K1 launch an iteration;
+  [23]     the multigrid (AMG) preconditioner on the main path's Euler
+           wing: 2 ANK steps (K2 exactly as in [12]), its build and apply
+           timed, the peak device memory, and evalFunctionsSens(cl) with
+           the transposed multigrid PC (20 GMRES iterations, 2 K2
+           launches);
+  [24]     2 BDF2 steps, 2 explicit RK4 steps and a 3-instance time
+           spectral solve of the main path's Euler wing, K2 exactly on
+           every residual evaluation, the stability derivatives;
+  [25]     small cases, card against CPU with exact launch counts: a '2w'
+           multigrid solve of the RANS-SA wing with its start (K1), DADI,
+           an AMG ANK step and the AMG-transposed adjoint, BDF2, RK4 and
+           time spectral on the Euler wing (K2).
 Any failed check raises, so the exit code is not 0. The last line is
 ``{"ok": true, "device": {...}}``; the line before it lists the kernels with
 their launches, errors and times (``ms`` by CUDA events around calls of the
@@ -138,10 +155,10 @@ DOT_RTOL_F32 = 1e-2
 FULL_ADJ_OPTS = {"adjointSubspaceSize": 40, "adjointMaxIter": 40,
                  "printIterations": True, "adjointMonitorStep": 10}
 
-# [17], matrix dissipation on the main path's mesh, depth cut to 2 ANK
-# steps; and the upwind residual at its state
+# [17], matrix dissipation on the main path's mesh, depth cut to 1 ANK
+# step; and the upwind residual at its state
 MATRIX = {"discretization": "central plus matrix dissipation"}
-MATRIX_STEPS = 2
+MATRIX_STEPS = 1
 UPWIND = {"discretization": "upwind", "riemannSolver": "Roe",
           "limiter": "van Albada"}
 # [18], the small cases: card (f32) against the CPU (f64) at the seeded
@@ -183,16 +200,51 @@ PLATE_REF_CONV = 1e-10  # the float64 reference, converged past the card's
 PLATE_REF_THREADS = 2
 PLATE_RTOL = 1e-5       # cd, cf and flow-through functions, against it
 
-# [20], the slice at full width: SST on the main path's mesh, viscous, at
-# the RK path's conditions, depth cut to SST_STEPS ANK steps
+# [20], SST on the main path's mesh, viscous, at the RK path's
+# conditions, depth cut to SST_STEPS ANK steps
 SST_OPTS = {"useANKSolver": True, "turbulenceModel": "SST"}
-SST_STEPS = 2
+SST_STEPS = 1
 # [21], the slice's options on small cases, card (f32) against the CPU
 # (f64): the grid motion and the plate of the CPU tests
 GRID_MOTION = dict(rotRate=(0.0, 0.0, 30.0), rotCenter=(0.25, 0.1, 0.0),
                    machGrid=0.1)
 PLATE_SMALL = dict(name="fp", mach=0.3, alpha=0.0, reynolds=1e6,
                    reynoldsLength=1.0, T=300.0)
+
+# [22], the slice at full width: FAS multigrid on the RK path's wing, the
+# full-multigrid start as the defaults run it, then MG_CYCLES W-cycles; the
+# start's coarse RK solves capped at MG_COARSE_CYCLES iterations a level
+# (whole chunks of 25). Then the DADI smoother on the same wing: nCycles
+# DADI_CYCLES, which runs one chunk of 25 iterations
+MG_OPTS = {"MGCycle": "3w", "MGStartLevel": -1}
+MG_CYCLES = 10
+MG_COARSE_CYCLES = 50
+DADI_CYCLES = 5
+# [23], the AMG preconditioner on the main path's Euler wing: AMG_STEPS ANK
+# steps from the free stream, then the adjoint of cl with the transposed
+# multigrid PC, cut to AMG_ADJ_ITERS GMRES iterations
+AMG_OPTS = {"ANKGlobalPreconditioner": "multigrid"}
+AMG_STEPS = 2
+AMG_ADJ_ITERS = 20
+# [24], unsteady and time spectral on the main path's Euler wing: 2
+# physical steps of each scheme; 3 time-spectral instances pitched by 1
+# degree, nCycles TS_CYCLES (one chunk of 25 cycles)
+UNSTEADY_STEPS = 2
+# explicit RK4's global step is bound by the smallest cells: about 1.5e-5
+# at CFL 1 on the 256x64x64 wing (1.3e-3 on the 16x8x8 one), extrapolated
+# from CPU runs at 64x16x16 to 128x32x32; 1e-4 diverged on the card
+UNSTEADY_DT = {"BDF": 0.01, "explicit RK": 1e-5}
+SMALL_UNSTEADY_DT = {"BDF": 0.01, "explicit RK": 1e-4}
+TS_OPTS = {"equationMode": "time spectral", "timeIntervals": 3,
+           "omegaFourier": 2.0 * 3.141592653589793, "useANKSolver": False,
+           "useNKSolver": False, "CFL": 1.2}
+TS_CYCLES = 10
+# [25], the small cases' multigrid: the 16x8x8 wing's coarse levels need
+# CFLCoarse 0.25 to stay finite (the CPU tests)
+SMALL_MG_OPTS = {"MGCycle": "2w", "CFLCoarse": 0.25, "nCyclesCoarse": 25,
+                 "useANKSolver": False}
+SMALL_MG_CYCLES = 5
+SMALL_HIST_RTOL = SOLVE_RTOL   # [4]'s small-RK tolerance
 
 # peak rates for the bound: (device-memory bytes/s, f32 FLOP/s outside the
 # tensor cores), NVIDIA data sheets; the SXM part is the default
@@ -298,6 +350,10 @@ def small_solve_parity():
     assert h_rel < SOLVE_RTOL and f_rel < SOLVE_RTOL
 
 
+# [5]'s ms per RK cycle and residual drop per cycle, for [22]
+RK_SUMMARY = {}
+
+
 def main_path():
     """The port's main path: ADFLOW on the full wing, 50 RK cycles, then
     evalFunctions. Returns the solver and the K1 launches it made."""
@@ -336,6 +392,9 @@ def main_path():
     assert hist.shape == (N_CYCLES, 2) and np.all(np.isfinite(hist))
     assert np.isfinite(funcs["m6_cl"]) and np.isfinite(funcs["m6_cd"])
     assert launches == RK_STAGES * N_CYCLES and k2 == 0, (launches, k2)
+    RK_SUMMARY.update(ms=(t2 - t1) / N_CYCLES * 1e3,
+                      drop=float((hist[-1, 0] / hist[0, 0])
+                                 ** (1.0 / (N_CYCLES - 1))))
     return solver, launches
 
 
@@ -720,18 +779,21 @@ def ank_breakdown(solver):
             (times["PC build"], times["PC apply"]))
 
 
-def profile_device(run, label, kernel=None):
+def profile_device(run, label, kernel=None, host_ops=True):
     """``run()`` under torch.profiler: its wall time, the device's busy
     time, device ops and idle share, and the kernels that took most of the
     device time. Returns the device ms a launch of ``kernel`` (a name in
     the profile), if given: the kernel's own time, with no host time in it,
     which CUDA events around a call hold where the host's call takes longer
-    than the kernel."""
+    than the kernel. ``host_ops=False`` traces the device only, for runs of
+    hundreds of thousands of ops, whose host events take minutes to
+    aggregate."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    activities = ([ProfilerActivity.CPU] if host_ops else []) + [
+        ProfilerActivity.CUDA]
+    with profile(activities=activities) as prof:
         t0 = time.perf_counter()
         run()
         torch.cuda.synchronize()
@@ -1597,6 +1659,471 @@ def cycle_breakdown(solver):
     return profile_device(two_cycles, "2 cycles", "rans_residual_kernel")
 
 
+# ---------------------------------------------------------------------------
+# [22]-[25]: the other solvers (multigrid, DADI, the AMG preconditioner,
+# unsteady, time spectral)
+# ---------------------------------------------------------------------------
+
+def mg_cycle_evals(opts):
+    """Fine-level residual evaluations of one FAS cycle: the pre- and
+    post-smoothing RK stages and the forced residual before restriction
+    (the coarse levels run the coarse-level scheme, which no kernel
+    takes)."""
+    return RK_STAGES * (int(opts["nMGFine"]) + int(opts["nMGCoarse"])) + 1
+
+
+def fmg_evals(infos):
+    """Residual evaluations of the full-multigrid start: per coarse level
+    solved, the Newton driver's free-stream and starting norms and five
+    RK stages an iteration (useANKSolver off)."""
+    return sum(2 + RK_STAGES * i.iterations for i in infos)
+
+
+def drop_per_cycle(hist):
+    """The geometric mean factor of the mean-flow residual a cycle."""
+    return float((hist[-1, 0] / hist[0, 0]) ** (1.0 / max(len(hist) - 1, 1)))
+
+
+def mg_path(rk_summary):
+    """[22]: the full-multigrid start and MG_CYCLES '3w' cycles of the RK
+    path's RANS-SA wing through ADFLOW: K1 exactly on the fine level's
+    evaluations and the start's coarse solves (which run the fine
+    configuration), K2 never; one cycle under the profiler; then the DADI
+    smoother on the same wing, one K1 launch an iteration. Returns the K1
+    launches of the multigrid run and of the DADI run."""
+    from adflow_torch.api.solver import ADFLOW
+    from adflow_torch.core.refstate import AeroProblem
+    from adflow_torch.meshgen.analytic import wing_omesh
+    from adflow_torch.solvers import multigrid as mg
+
+    mesh = wing_omesh(ni=FULL_DIMS[0], nj=FULL_DIMS[1], nk=FULL_DIMS[2],
+                      viscous=True)
+    solver = ADFLOW(options=dict(solver_options(MG_CYCLES),
+                                 nCyclesCoarse=MG_COARSE_CYCLES, **MG_OPTS),
+                    mesh=mesh)
+    ap = AeroProblem(**M6)
+    solver.setAeroProblem(ap)
+    start = {}
+    fmg_start = solver._fmg_start
+
+    def timed_start(opt):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fmg_start(opt)
+        torch.cuda.synchronize()
+        start["s"] = time.perf_counter() - t0
+
+    solver._fmg_start = timed_start
+    torch.cuda.synchronize()
+    zero_launches()
+    t1 = time.perf_counter()
+    solver(ap)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    k1, k2 = launches()
+    funcs = solver.evalFunctions(ap, {})
+    info, fmg = solver.solve_info, solver.fmg_info
+    hist = info.history
+    opts = solver.options
+    levels = " and ".join(
+        f"{'x'.join(str(d // 2 ** (len(fmg) - i)) for d in FULL_DIMS)}: "
+        f"{f.iterations} RK iterations, R {f.total_r0:.4e} -> "
+        f"{f.total_r_final:.4e}{' (failed)' if f.failed else ''}"
+        for i, f in enumerate(fmg))
+    print(f"  full-multigrid start {start['s']:.3f} s; {levels}"
+          f"{'; the free stream kept' if fmg[-1].failed else ''}")
+    cyc_s = (t2 - t1 - start["s"]) / info.iterations
+    for it in range(info.iterations):
+        print(f"  cycle {it + 1:3d}: resrho {hist[it, 0]:.6e} resturb "
+              f"{hist[it, 1]:.6e}")
+    print(f"  {info.iterations} W-cycles in {t2 - t1 - start['s']:.3f} s: "
+          f"{cyc_s * 1e3:.3f} ms per cycle, residual drop "
+          f"{drop_per_cycle(hist):.4f} per cycle ([5]'s RK: "
+          f"{rk_summary['ms']:.3f} ms per cycle, drop "
+          f"{rk_summary['drop']:.4f} per cycle)")
+    print(f"  cl {funcs['m6_cl']!r}, cd {funcs['m6_cd']!r}")
+    per_cycle = mg_cycle_evals(opts)
+    expected = fmg_evals(fmg) + per_cycle * info.iterations
+    print(f"  K1 launches {k1} (expected {expected}: the start's "
+          f"{fmg_evals(fmg)} = sum over its coarse levels of 2 + "
+          f"{RK_STAGES} x RK iterations, + {per_cycle} fine-level "
+          f"evaluations a cycle = {RK_STAGES} x (nMGFine + nMGCoarse) + 1), "
+          f"K2 launches {k2} (expected 0)")
+    # the start solves the coarsest level, then the next, and keeps the
+    # free stream once a level fails
+    assert solver.dtype == torch.float32 and len(fmg) in (1, 2)
+    assert len(fmg) == 2 or fmg[0].failed
+    assert hist.shape == (MG_CYCLES, 2) and np.all(np.isfinite(hist))
+    assert np.isfinite(funcs["m6_cl"]) and np.isfinite(funcs["m6_cd"])
+    assert k1 == expected and k2 == 0, (k1, expected, k2)
+
+    levels_ = mg.build_mg_levels(solver.mesh, solver.x_list, solver.cfg, 3)
+    irs = max(float(opts["smoothParameter"]) - 1.0, 0.0)
+    profile_device(lambda: mg.fas_cycle(
+        solver.w_list, levels_, solver.cfg, solver.ref, solver.winf,
+        float(opts["CFL"]), cycle="w", irs_eps=irs,
+        cfl_coarse=float(opts["CFLCoarse"]),
+        vis2_coarse=float(opts["vis2Coarse"]),
+        coarse_disc=str(opts["coarseDiscretization"])),
+        "one 3w cycle", "rans_residual_kernel", host_ops=False)
+    del solver, levels_
+
+    solver = ADFLOW(options=dict(solver_options(DADI_CYCLES),
+                                 smoother="DADI"), mesh=mesh)
+    solver.setAeroProblem(ap)
+    torch.cuda.synchronize()
+    zero_launches()
+    t1 = time.perf_counter()
+    solver(ap)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    k1_dadi, k2_dadi = launches()
+    info = solver.solve_info
+    print(f"  DADI: {info.iterations} iterations (nCycles {DADI_CYCLES}, "
+          f"one chunk) in {t2 - t1:.3f} s: "
+          f"{(t2 - t1) / info.iterations * 1e3:.3f} ms per iteration; "
+          f"resrho {info.history[0, 0]:.6e} -> {info.history[-1, 0]:.6e}; "
+          f"K1 launches {k1_dadi} (expected {info.iterations}: one an "
+          f"iteration), K2 {k2_dadi}")
+    assert np.all(np.isfinite(info.history))
+    assert k1_dadi == info.iterations and k2_dadi == 0, (k1_dadi, k2_dadi)
+    return k1, k1_dadi
+
+
+def amg_path(scalar_pc_ms):
+    """[23]: AMG_STEPS ANK steps of the main path's Euler wing from the
+    free stream with the multigrid (AMG) preconditioner, K2 exactly as in
+    [12]; the AMG PC's build and apply timed beside [14]'s line PC; the
+    peak device memory; then ``evalFunctionsSens(cl)`` with the transposed
+    multigrid PC, AMG_ADJ_ITERS GMRES iterations, K2 exactly 2. Returns the
+    K2 launches of the ANK steps and of the adjoint."""
+    from adflow_torch.api.solver import ADFLOW
+    from adflow_torch.core.refstate import AeroProblem
+    from adflow_torch.meshgen.analytic import wing_omesh
+    from adflow_torch.solvers import newton
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    solver = ADFLOW(options=dict(euler_options(AMG_STEPS), **AMG_OPTS),
+                    mesh=wing_omesh(ni=FULL_DIMS[0], nj=FULL_DIMS[1],
+                                    nk=FULL_DIMS[2]))
+    ap = AeroProblem(**EULER)
+    solver.setAeroProblem(ap)
+    torch.cuda.synchronize()
+    zero_launches()
+    t1 = time.perf_counter()
+    solver(ap)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    k1, k2 = launches()
+    info = solver.solve_info
+    print_steps(info)
+    expected = 2 + sum(r.res_evals for r in info.steps)
+    print(f"  {len(info.steps)} ANK steps with the multigrid PC in "
+          f"{t2 - t1:.3f} s: {(t2 - t1) / len(info.steps) * 1e3:.3f} ms per "
+          f"step; Krylov iterations "
+          f"{[int(r.stats[4]) for r in info.steps]}")
+    print(f"  K2 launches {k2} (expected {expected}: [12]'s formula), K1 "
+          f"{k1}")
+    assert len(info.steps) == AMG_STEPS and not info.failed
+    assert np.all(np.isfinite(info.history))
+    assert k2 == expected and k1 == 0, (k2, expected, k1)
+
+    opts = solver.options
+    fns = newton.build_newton_fns(
+        solver.w_list, solver.metrics_list, solver.topo, solver.cfg,
+        solver.ref, solver.winf, solver.extras_list)
+    wvec = fns.packer.pack_w(solver.w_list)
+    cfl = info.steps[-1].cfl
+    axes, kappa = newton._pc_params(opts)
+    kw = newton._pc_choice(opts, "ANK")
+    pc = fns.build_pc(wvec, cfl, axes=axes, kappa=kappa, **kw)
+    v = fns.res_flat(wvec)
+    v = v / torch.linalg.norm(v)
+    build_ms = time_ms(lambda: fns.build_pc(wvec, cfl, axes=axes,
+                                            kappa=kappa, **kw),
+                       reps=3, warmup=1)
+    apply_ms = time_ms(lambda: newton.pc_apply_vec(pc, fns.packer, v),
+                       reps=5, warmup=1)
+    print(f"  AMG PC ({kw['amg_levels']} levels: "
+          f"{' / '.join('x'.join(map(str, o.D.shape[:3])) for o in pc[0].ops)}"
+          f"): build {build_ms:.4f} ms (median of 3), apply {apply_ms:.4f} "
+          f"ms (median of 5); [14]'s line PC: build {scalar_pc_ms[0]:.4f} "
+          f"ms, apply {scalar_pc_ms[1]:.4f} ms")
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    print(f"  peak device memory {peak:.3f} GiB")
+    del pc, fns
+
+    for k, val in dict(adjointGlobalPreconditioner="multigrid",
+                       adjointSubspaceSize=AMG_ADJ_ITERS,
+                       adjointMaxIter=AMG_ADJ_ITERS).items():
+        solver.setOption(k, val)
+    zero_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sens = solver.evalFunctionsSens(ap, {}, ["cl"])[f"{ap.name}_cl"]
+    torch.cuda.synchronize()
+    k1_adj, k2_adj = launches()
+    ainfo = solver.adjoint_info
+    rel_res = ainfo.res_norm / ainfo.b_norm
+    print(f"  evalFunctionsSens(cl), transposed multigrid PC: "
+          f"{time.perf_counter() - t0:.3f} s; {ainfo.iters} GMRES "
+          f"iterations to rel {rel_res:.3e}; dcl/dalpha "
+          f"{sens['alpha']!r}; K2 launches {k2_adj} (expected 2), K1 "
+          f"{k1_adj}")
+    assert k2_adj == 2 and k1_adj == 0, (k2_adj, k1_adj)
+    assert ainfo.iters == AMG_ADJ_ITERS and np.isfinite(rel_res)
+    assert np.isfinite(sens["alpha"]) and np.all(np.isfinite(sens["xv"]))
+    return k2, k2_adj
+
+
+def unsteady_evals(scheme, n_steps):
+    """Residual evaluations of n_steps physical steps: BDF's 50 inner RK
+    iterations of five stages, or RK4's four stages."""
+    return n_steps * (50 * RK_STAGES if scheme == "BDF" else 4)
+
+
+def unsteady_path():
+    """[24]: 2 BDF2 steps, 2 explicit RK4 steps and a 3-instance time
+    spectral solve (25 cycles) of the main path's Euler wing through
+    ADFLOW, K2 exactly on every residual evaluation; the stability
+    derivatives of the pitching instances. Returns the K2 launches."""
+    from adflow_torch.api.solver import ADFLOW
+    from adflow_torch.core.refstate import AeroProblem
+    from adflow_torch.meshgen.analytic import wing_omesh
+
+    mesh = wing_omesh(ni=FULL_DIMS[0], nj=FULL_DIMS[1], nk=FULL_DIMS[2])
+    total = 0
+    for scheme in ("BDF", "explicit RK"):
+        solver = ADFLOW(options=dict(
+            euler_options(1), equationMode="unsteady",
+            timeIntegrationScheme=scheme, deltaT=UNSTEADY_DT[scheme]),
+            mesh=mesh)
+        ap = AeroProblem(**EULER)
+        solver.setAeroProblem(ap)
+        w0 = solver.getStates()
+        torch.cuda.synchronize()
+        zero_launches()
+        t1 = time.perf_counter()
+        solver(ap, nTimeSteps=UNSTEADY_STEPS)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        k1, k2 = launches()
+        ui = solver.unsteady_info
+        moved = float((solver.getStates() - w0).abs().max())
+        expected = unsteady_evals(scheme, UNSTEADY_STEPS)
+        print(f"  {scheme}, dt {UNSTEADY_DT[scheme]:g}: {ui.n_steps} steps "
+              f"to t={ui.times[-1]:.4g} in {t2 - t1:.3f} s: "
+              f"{(t2 - t1) / ui.n_steps * 1e3:.3f} ms per physical step; "
+              f"final inner residuals {ui.inner_res.tolist()}; largest "
+              f"state change {moved:.4e}; K2 launches {k2} (expected "
+              f"{expected}), K1 {k1}")
+        assert ui.n_steps == UNSTEADY_STEPS and not ui.failed
+        assert np.all(np.isfinite(ui.inner_res)) and np.isfinite(moved)
+        assert bool(torch.isfinite(solver.getStates()).all())
+        assert k2 == expected and k1 == 0, (scheme, k2, expected, k1)
+        total += k2
+        del solver
+
+    solver = ADFLOW(options=dict(euler_options(TS_CYCLES), **TS_OPTS),
+                    mesh=mesh)
+    ap = AeroProblem(**EULER)
+    solver.setAeroProblem(ap)
+    torch.cuda.synchronize()
+    zero_launches()
+    t1 = time.perf_counter()
+    solver(ap, alphaAmplitude=1.0)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    k1, k2 = launches()
+    info = solver.solve_info
+    n_inst = int(solver.options["timeIntervals"])
+    names = ["cl0", "clalpha", "clalphadot", "cd0", "cdalpha", "cmzalpha"]
+    funcs = solver.evalFunctions(ap, {}, names)
+    expected = info.iterations * RK_STAGES * n_inst
+    print(f"  time spectral, {n_inst} instances: {info.iterations} cycles "
+          f"(nCycles {TS_CYCLES}, one chunk) in {t2 - t1:.3f} s: "
+          f"{(t2 - t1) / info.iterations * 1e3:.3f} ms per cycle; R "
+          f"{info.total_r0:.6e} -> {info.total_r_final:.6e}")
+    print("  stability derivatives: " + ", ".join(
+        f"{n} {funcs[f'{ap.name}_{n}']!r}" for n in names))
+    print(f"  K2 launches {k2} (expected {expected}: {RK_STAGES} stages x "
+          f"{n_inst} instances a cycle), K1 {k1}")
+    assert not info.failed and np.all(np.isfinite(info.history))
+    assert all(np.isfinite(funcs[f"{ap.name}_{n}"]) for n in names)
+    assert k2 == expected and k1 == 0, (k2, expected, k1)
+    return total + k2
+
+
+def small_run(device, mesh_fn, ap_kw, options, w0=None, perturb=True,
+              **call_kw):
+    """One small case through ADFLOW on ``device`` from the seeded
+    perturbed free stream (``w0``, else made here): (solver, (K1, K2),
+    w0, the state before the call)."""
+    from adflow_torch.api.solver import ADFLOW
+    from adflow_torch.core.refstate import AeroProblem
+
+    solver = ADFLOW(options=options, mesh=mesh_fn(), device=device)
+    ap = AeroProblem(**ap_kw)
+    solver.setAeroProblem(ap)
+    if perturb:
+        w0 = perturbed_state(solver) if w0 is None else w0
+        solver.setStates(w0)
+    before = solver.getStates().double().cpu().numpy()
+    zero_launches()
+    solver(ap, **call_kw)
+    return solver, launches(), w0, before
+
+
+def hist_rel(a, b):
+    a, b = np.asarray(a, float), np.asarray(b, float)
+    return float(np.abs(a - b).max() / np.abs(b).max())
+
+
+def small_solvers_parity():
+    """[25]: the slice's small cases on the card (f32) against the CPU
+    (f64), exact launch counts on the card. Returns (K1, K2) launches."""
+    from adflow_torch.meshgen.analytic import wing_omesh
+
+    def euler_wing():
+        return wing_omesh(ni=16, nj=8, nk=8)
+
+    def rans_wing():
+        return wing_omesh(ni=16, nj=8, nk=8, viscous=True)
+
+    def pair(label, mesh_fn, ap_kw, options, perturb=True, **call_kw):
+        cpu, _, w0, _ = small_run("cpu", mesh_fn, ap_kw, options,
+                                  perturb=perturb, **call_kw)
+        card, k, _, before = small_run("cuda:0", mesh_fn, ap_kw, options,
+                                       w0, perturb, **call_kw)
+        assert card.dtype == torch.float32 and cpu.dtype == torch.float64
+        return cpu, card, k, before
+
+    k1_all = k2_all = 0
+
+    # a '2w' multigrid solve of the RANS-SA wing with its start
+    opts = dict(solver_options(SMALL_MG_CYCLES), **SMALL_MG_OPTS)
+    cpu, card, (k1, k2), _ = pair("mg", rans_wing, M6, opts, perturb=False)
+    err = hist_rel(card.solve_info.history, cpu.solve_info.history)
+    expected = (fmg_evals(card.fmg_info)
+                + mg_cycle_evals(card.options) * card.solve_info.iterations)
+    print(f"  '2w' multigrid, RANS-SA wing 16x8x8, {SMALL_MG_CYCLES} cycles "
+          f"after the full-multigrid start (coarse solve "
+          f"{'failed, free stream kept' if card.fmg_info[0].failed else 'converged'}"
+          f" on the card, "
+          f"{'failed' if cpu.fmg_info[0].failed else 'converged'} on the "
+          f"CPU): history rel err {err:.3e} (tolerance {SMALL_HIST_RTOL:g}); "
+          f"K1 {k1} (expected {expected}), K2 {k2}")
+    assert np.all(np.isfinite(card.solve_info.history))
+    assert err < SMALL_HIST_RTOL and (k1, k2) == (expected, 0), (k1, k2)
+    k1_all += k1
+
+    # the DADI smoother on the Euler wing
+    opts = dict(euler_options(1), smoother="DADI", useANKSolver=False)
+    cpu, card, (k1, k2), _ = pair("dadi", euler_wing, EULER, opts)
+    err = hist_rel(card.solve_info.history[:, 0],
+                   cpu.solve_info.history[:, 0])
+    n = card.solve_info.iterations
+    print(f"  DADI, Euler wing 16x8x8, {n} iterations: history rel err "
+          f"{err:.3e} (tolerance {SMALL_HIST_RTOL:g}); K2 {k2} (expected "
+          f"{n}), K1 {k1}")
+    assert err < SMALL_HIST_RTOL and (k1, k2) == (0, n), (k1, k2)
+    k2_all += k2
+
+    # one ANK step with the multigrid PC
+    opts = dict(euler_options(1), **AMG_OPTS)
+    cpu, card, (k1, k2), _ = pair("amg", euler_wing, EULER, opts)
+    sc, sg = cpu.solve_info.steps[0].stats, card.solve_info.steps[0].stats
+    err = hist_rel(sg[[0, 1, 5]], sc[[0, 1, 5]])
+    expected = 2 + card.solve_info.steps[0].res_evals
+    print(f"  one ANK step with the multigrid PC, Euler wing 16x8x8: "
+          f"residual {sg[1]:.6e} vs {sc[1]:.6e}, Krylov iterations "
+          f"{int(sg[4])} vs {int(sc[4])}, linres {sg[5]:.4e} vs "
+          f"{sc[5]:.4e}; rel err {err:.3e} (tolerance {ANK_SOLVE_RTOL:g}); "
+          f"K2 {k2} (expected {expected}), K1 {k1}")
+    assert err < ANK_SOLVE_RTOL and (k1, k2) == (0, expected), (k1, k2)
+    k2_all += k2
+
+    # the adjoint of cl with the transposed multigrid PC
+    amg_adj = dict(ADJ_EULER_OPTS, adjointGlobalPreconditioner="multigrid")
+    cpu_s, _, _, _, w0 = small_adjoint("euler", "cpu", ["cl"], **amg_adj)
+    card_s, _, k1, k2, _ = small_adjoint("euler", "cuda:0", ["cl"], w0,
+                                         **amg_adj)
+    print(f"  K2 launches {k2} (expected 2), K1 {k1}")
+    assert (k1, k2) == (0, 2), (k1, k2)
+    compare_totals("card vs CPU, transposed multigrid PC, cl",
+                   cpu_s["m6e_cl"], card_s["m6e_cl"], ("alpha", "mach"),
+                   ADJ_EULER_RTOL)
+    k2_all += k2
+
+    # a BDF2 and an explicit RK4 march
+    for scheme in ("BDF", "explicit RK"):
+        opts = dict(euler_options(1), equationMode="unsteady",
+                    timeIntegrationScheme=scheme,
+                    deltaT=SMALL_UNSTEADY_DT[scheme])
+        cpu, card, (k1, k2), before = pair(
+            scheme, euler_wing, EULER, opts, nTimeSteps=UNSTEADY_STEPS)
+        dc = cpu.getStates().numpy() - before
+        dg = card.getStates().double().cpu().numpy() - before
+        err = hist_rel(dg, dc)
+        expected = unsteady_evals(scheme, UNSTEADY_STEPS)
+        print(f"  {scheme}, Euler wing 16x8x8, {UNSTEADY_STEPS} steps: state "
+              f"change rel err {err:.3e} (tolerance {SMALL_HIST_RTOL:g}); "
+              f"inner residuals card {card.unsteady_info.inner_res.tolist()}"
+              f", CPU {cpu.unsteady_info.inner_res.tolist()}; K2 {k2} "
+              f"(expected {expected}), K1 {k1}")
+        assert np.all(np.isfinite(dg))
+        assert err < SMALL_HIST_RTOL and (k1, k2) == (0, expected), (k1, k2)
+        k2_all += k2
+
+    # 3-instance time spectral
+    opts = dict(euler_options(TS_CYCLES), **TS_OPTS)
+    cpu, card, (k1, k2), _ = pair("ts", euler_wing, EULER, opts,
+                                  alphaAmplitude=1.0)
+    err = hist_rel(card.solve_info.history[:, 0],
+                   cpu.solve_info.history[:, 0])
+    expected = card.solve_info.iterations * RK_STAGES * 3
+    names = ("cl0", "clalpha", "clalphadot")
+    fc = cpu.evalFunctions(cpu.curAP, {}, names)
+    fg = card.evalFunctions(card.curAP, {}, names)
+    print(f"  time spectral, 3 instances, Euler wing 16x8x8, "
+          f"{card.solve_info.iterations} cycles: history rel err {err:.3e} "
+          f"(tolerance {SMALL_HIST_RTOL:g}); " + ", ".join(
+              f"{k[4:]} {fg[k]:.6g} vs {fc[k]:.6g}" for k in fc)
+          + f"; K2 {k2} (expected {expected}), K1 {k1}")
+    assert err < SMALL_HIST_RTOL and (k1, k2) == (0, expected), (k1, k2)
+    assert all(np.isfinite(v) for v in fg.values())
+    k2_all += k2
+    return k1_all, k2_all
+
+
+def solver_slice(phase, scalar_pc_ms):
+    """[22]-[25]; returns the K1 and K2 launches of their main paths, by
+    path."""
+    phase(f"[22] the slice at full width: the full-multigrid start and "
+          f"{MG_CYCLES} '3w' cycles of the {'x'.join(map(str, FULL_DIMS))} "
+          f"RANS-SA wing, then the DADI smoother")
+    k1_mg, k1_dadi = mg_path(RK_SUMMARY)
+    phase(f"[23] the AMG preconditioner at full width: {AMG_STEPS} ANK steps "
+          f"and the adjoint of cl on the {'x'.join(map(str, FULL_DIMS))} "
+          f"Euler wing")
+    k2_amg, k2_amg_adj = amg_path(scalar_pc_ms)
+    phase(f"[24] unsteady (BDF2, RK4) and time spectral on the "
+          f"{'x'.join(map(str, FULL_DIMS))} Euler wing")
+    k2_unsteady = unsteady_path()
+    phase("[25] small cases, card against CPU: multigrid and its start, "
+          "DADI, the AMG ANK step and adjoint, BDF2, RK4, time spectral")
+    k1_small, k2_small = small_solvers_parity()
+    return ({"mg_rans_wing_256x64x64": k1_mg,
+             "dadi_rans_wing_256x64x64": k1_dadi,
+             "solvers_small_cases": k1_small},
+            {"amg_ank_euler_wing_256x64x64": k2_amg,
+             "amg_adjoint_euler_wing_256x64x64": k2_amg_adj,
+             "unsteady_ts_euler_wing_256x64x64": k2_unsteady,
+             "solvers_small_cases": k2_small})
+
+
 class Phases:
     """Prints each phase's heading and, at the next one, its wall time."""
 
@@ -1751,6 +2278,7 @@ def main() -> int:
           "functions, grid motion, the low-speed preconditioner, actuator "
           "sources, the grid-motion adjoint")
     k1_phys, k2_phys = small_physics_parity()
+    k1_new, k2_new = solver_slice(phase, scalar_pc_ms)
     phase()
     print(f"total wall time {time.perf_counter() - t_start:.1f} s")
 
@@ -1761,7 +2289,7 @@ def main() -> int:
          "replaces": "adflow_tpu/ops/pallas_rans.py:58",
          "design": "one pass, i-march",
          "launches": (k1_rk + k1_ank + k1_adj + k1_matrix + k1_small
-                      + k1_plate + k1_phys),
+                      + k1_plate + k1_phys + sum(k1_new.values())),
          "launches_by_path": {"rk_rans_wing_256x64x64": k1_rk,
                               "ank_rans_wing_64x24x16": k1_ank,
                               "adjoint_rans_wing_16x8x8": k1_adj,
@@ -1769,7 +2297,7 @@ def main() -> int:
                               "upwind_matrix_wing_16x8x8": k1_small,
                               "mixed_rans_plate_16x12": k1_plate,
                               "sst_wing_256x64x64": 0,
-                              "physics_small_cases": k1_phys},
+                              "physics_small_cases": k1_phys, **k1_new},
          "max_abs_err": max_abs, "max_rel_err": flux_rel,
          "max_rel_err_of_residual": max_rel, **k1_times,
          "library_ms": None},
@@ -1778,7 +2306,7 @@ def main() -> int:
          "replaces": "adflow_tpu/ops/pallas_residual.py:45",
          "design": "one pass, i-march",
          "launches": (k2_ank + k2_adj + k2_full_adj + k2_matrix + k2_small
-                      + k2_mixed + k2_sst + k2_phys),
+                      + k2_mixed + k2_sst + k2_phys + sum(k2_new.values())),
          "launches_by_path": {"ank_euler_wing_256x64x64": k2_ank,
                               "adjoint_euler_wing_16x8x8": k2_adj,
                               "adjoint_euler_wing_256x64x64": k2_full_adj,
@@ -1786,7 +2314,7 @@ def main() -> int:
                               "upwind_matrix_wing_16x8x8": k2_small,
                               "mixed_euler_wing_16x8x8": k2_mixed,
                               "sst_wing_256x64x64": k2_sst,
-                              "physics_small_cases": k2_phys},
+                              "physics_small_cases": k2_phys, **k2_new},
          "max_abs_err": k2_abs, "max_rel_err": k2_flux_rel, **k2_times,
          "library_ms": None},
     ]}))

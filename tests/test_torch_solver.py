@@ -7,7 +7,9 @@ residual history, the final interior states and ``evalFunctions`` cl/cd
 agree to 1e-9 relative. The port refuses to start without a card unless the
 caller names a device, and none of its modules imports JAX or the JAX
 package. Each physics option and an actuator region run through
-``ADFLOW``; what still raises names its ROADMAP.md item (10-13).
+``ADFLOW``, and so do the solver branches that ROADMAP.md item 10 ported
+(the multigrid ANK preconditioner, the unsteady mode, multigrid), against
+the JAX package; what still raises names its ROADMAP.md item (11-13).
 """
 
 import subprocess
@@ -23,6 +25,7 @@ from adflow_tpu.meshgen.analytic import wing_omesh as jax_wing
 from adflow_torch.api.solver import ADFLOW
 from adflow_torch.core.refstate import AeroProblem
 from adflow_torch.meshgen.analytic import flatplate_mesh, wing_omesh
+from tests.torch_pairs import perturbed
 
 OPTS = {"equationType": "RANS", "useANKSolver": False, "useNKSolver": False,
         "nCycles": 25, "printIterations": False, "printTiming": False}
@@ -123,16 +126,62 @@ def test_default_device_needs_a_card():
 
 
 @pytest.mark.parametrize("branch,opts", [
-    ("ank", {"useANKSolver": True, "ANKGlobalPreconditioner": "multigrid"}),
-    ("unsteady", {"equationMode": "unsteady"}),
-    ("multigrid", {"MGCycle": "2w"}),
+    pytest.param("ank", {"useANKSolver": True, "nCycles": 2,
+                         "ANKGlobalPreconditioner": "multigrid"},
+                 marks=pytest.mark.slow),
+    ("unsteady", {"equationType": "euler", "equationMode": "unsteady",
+                  "deltaT": 1e-4, "timeIntegrationScheme": "explicit RK"}),
+    pytest.param("multigrid", {"equationType": "euler", "MGCycle": "3w",
+                               "nCycles": 5, "nCyclesCoarse": 25,
+                               "CFLCoarse": 0.25},
+                 marks=pytest.mark.slow),
 ])
-def test_unported_branches_raise(branch, opts):
-    solver = ADFLOW(options=dict(OPTS, **opts),
-                    mesh=wing_omesh(ni=8, nj=4, nk=4, viscous=True),
-                    device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        solver(AeroProblem(**AP))
+def test_ported_branches_match_jax(branch, opts):
+    """The branches of ``__call__`` that the port once refused run through
+    ``ADFLOW`` as in the JAX package, from the seeded perturbed free
+    stream (tests/torch_pairs.py): the multigrid (AMG) ANK preconditioner
+    (2 steps of the 8x4x4 RANS-SA wing), the unsteady mode (2 explicit RK4
+    steps of the 16x8x8 Euler wing; BDF and the pieces are in
+    tests/test_torch_unsteady.py) and a '3w' multigrid solve of the Euler
+    wing with its full-multigrid start (5 cycles; the start replaces the
+    perturbed state). History, states and cl/cd to 1e-9. The ANK and
+    multigrid cases are slow: the JAX package compiles their steps and
+    cycles (1 to 5 min)."""
+    if branch == "ank":
+        jax_mesh = jax_wing(ni=8, nj=4, nk=4, viscous=True)
+        mesh = wing_omesh(ni=8, nj=4, nk=4, viscous=True)
+        ap_kw = AP
+    else:
+        jax_mesh, mesh = jax_wing(ni=16, nj=8, nk=8), wing_omesh(ni=16, nj=8,
+                                                              nk=8)
+        ap_kw = dict(name="w", mach=0.84, alpha=3.06, evalFuncs=["cl", "cd"])
+    jax_solver = JaxADFLOW(options=dict(OPTS, **opts), mesh=jax_mesh)
+    solver = ADFLOW(options=dict(OPTS, **opts), mesh=mesh, device="cpu")
+    jax_ap, ap = JaxAP(**ap_kw), AeroProblem(**ap_kw)
+    # from the seeded perturbed free stream (the sensor kink of the exact
+    # one, tests/torch_pairs.py)
+    jax_solver.setAeroProblem(jax_ap)
+    solver.setAeroProblem(ap)
+    w0 = perturbed(np.asarray(jax_solver.getStates()), solver.ref.nw)
+    jax_solver.setStates(w0)
+    solver.setStates(w0)
+    jax_solver(jax_ap, nTimeSteps=2)
+    solver(ap, nTimeSteps=2)
+    if branch == "unsteady":
+        hj = jax_solver.unsteady_info.inner_res
+        ht = solver.unsteady_info.inner_res
+        assert ht.shape == (2,)
+    else:
+        hj = jax_solver.solve_info.history
+        ht = solver.solve_info.history
+    assert hj.shape == ht.shape and np.all(np.isfinite(ht))
+    assert _rel(hj, ht) < TOL
+    assert _rel(np.asarray(jax_solver.getStates()),
+                solver.getStates().numpy()) < TOL
+    fj = jax_solver.evalFunctions(jax_ap, {})
+    ft = solver.evalFunctions(ap, {})
+    for key in fj:
+        assert abs(ft[key] - fj[key]) <= TOL * abs(fj[key]), key
 
 
 @pytest.mark.parametrize("option,value,item", [
@@ -202,7 +251,9 @@ def test_actuator_region_solves():
 def test_port_imports_no_jax():
     code = ("import sys, adflow_torch.api.solver, adflow_torch.interop, "
             "adflow_torch.ops.cuda_rans, adflow_torch.ops.cuda_inviscid, "
-            "adflow_torch.solvers.newton; "
+            "adflow_torch.solvers.newton, adflow_torch.solvers.multigrid, "
+            "adflow_torch.solvers.amg, adflow_torch.solvers.unsteady, "
+            "adflow_torch.solvers.timespectral; "
             "bad = [m for m in sys.modules "
             "if m.split('.')[0] in ('jax', 'jaxlib', 'adflow_tpu')]; "
             "assert not bad, bad")
