@@ -34,8 +34,12 @@ package's ``traced_winf`` appends nu_tilde_inf and 1.0 there instead, so
 its adjoint linearizes a residual whose far-field ghosts differ from the
 one its primal solved; the port linearizes the primal's residual.
 
-Not ported: user surfaces, overset iblank, the zipper, patch weights and
-cp targets (ROADMAP.md queue 1 item 11).
+On an overset mesh the residual goes through the fringe interpolation
+(``apply_overset``, out of place) and the iblank mask, and the functions
+take the iblank masks, the overlap weights, the zipper's gap triangles and
+the cp targets, as ``evalFunctions`` does; each user integration surface
+adds its functions. The tables are those of the solver when the functions
+are built: a geometry update drops them.
 """
 
 from __future__ import annotations
@@ -51,6 +55,7 @@ from adflow_torch.core.refstate import GAMMA, ReferenceState
 from adflow_torch.geom.metrics import add_grid_motion, compute_metrics_conn
 from adflow_torch.physics.residual import fill_halos, residual_list
 from adflow_torch.physics.surface import cost_functions, integrate_forces
+from adflow_torch.physics.usersurf import integrate_user_surface
 from adflow_torch.solvers.krylov import GmresResult, gmres
 
 # The PC's pseudo-CFL: the same large regularization NK uses (the JAX
@@ -135,6 +140,11 @@ def build_adjoint_fns(solver) -> AdjointFns:
     x_offsets = np.concatenate(
         [[0], np.cumsum([math.prod(s) for s in x_shapes])]).tolist()
     wall_patches = solver.wall_patches
+    surface_kw = dict(
+        iblank_list=[bs.iblank for bs in topo.blocks],
+        patch_weights=solver.wall_patch_weights,
+        cp_targets=solver._cp_targets, zipper=solver.zipper_gaps)
+    user_surfaces = list(solver._user_surfaces)
     dtype = solver.dtype
     mesh_blocks = solver.mesh.blocks
     pad_shapes = [tuple(d + 4 for d in bs.dims) + (packer.nw,)
@@ -175,8 +185,11 @@ def build_adjoint_fns(solver) -> AdjointFns:
         ref, winf, x_list, metrics_list, w_list = _prep(wvec, xvec, params)
         w_list = fill_halos(w_list, metrics_list, topo, ref, winf)
         f = integrate_forces(w_list, x_list, metrics_list, wall_patches,
-                             ref, cfg, extras_list=extras_list)
-        return cost_functions(f, ref)
+                             ref, cfg, extras_list=extras_list, **surface_kw)
+        out = cost_functions(f, ref)
+        for surf in user_surfaces:
+            out.update(integrate_user_surface(w_list, surf, ref))
+        return out
 
     return AdjointFns(res=res, funcs=funcs, pack_x=pack_x,
                       unpack_x=unpack_x)

@@ -12,10 +12,17 @@ explicit RK4) and 'time spectral' with its stability derivatives. Besides:
 (adjoint/api.py): ``solveAdjoint``, ``evalFunctionsSens``,
 ``computeJacobianVectorProductFwd/Bwd``, ``solveAdjointForRHS`` and
 ``solveDirectForRHS``, which take numpy arrays or tensors and return numpy
-arrays, as the JAX package's do. The solver runs on ``cuda:0`` unless the
-caller passes another device (the tests pass ``device="cpu"``); it never
-falls back to the CPU on its own. What is not ported yet (overset, several
-devices, I/O) raises ``NotImplementedError`` naming its ROADMAP.md item.
+arrays, as the JAX package's do. Overset meshes (an OVERSET face or a
+``cutCallback``; implicit or explicit hole cut, the zipper and the overlap
+weights), user integration surfaces (``addIntegrationSurface``), cp-target
+inverse design (``setTargetCp``) and the geometry interface
+(``setSurfaceCoordinates``/``updateGeometryInfo`` with the IDW warp, the
+overset re-assembly and the quick wall-distance update; ``getGrid``/
+``setGrid``; ``checkMeshQuality``, ``checkOverset``) run as in the JAX
+package. The solver runs on ``cuda:0`` unless the caller passes another
+device (the tests pass ``device="cpu"``); it never falls back to the CPU on
+its own. What is not ported yet (several devices, I/O and the rest of the
+API) raises ``NotImplementedError`` naming its ROADMAP.md item.
 """
 
 from __future__ import annotations
@@ -37,6 +44,7 @@ from adflow_torch.physics.residual import (
 from adflow_torch.physics.surface import (
     FLOW_THROUGH_BCS, build_wall_patches, cost_functions, flow_through,
     integrate_forces, wall_sensors)
+from adflow_torch.physics.usersurf import integrate_user_surface
 from adflow_torch.solvers import steady
 from adflow_torch.solvers.smoothers import residual_norms
 from adflow_torch.utils.dtypes import resolve_dtype
@@ -77,7 +85,9 @@ class _IterMonitor:
         w_list = [w.to(s.dtype) for w in w_list]
         wf = fill_halos(w_list, s.metrics_list, s.topo, s.ref, s.winf)
         f = integrate_forces(wf, s.x_list, s.metrics_list, s.wall_patches,
-                             s.ref, s.cfg, extras_list=s.extras_list)
+                             s.ref, s.cfg, iblank_list=s._iblank_list(),
+                             extras_list=s.extras_list,
+                             patch_weights=s.wall_patch_weights)
         return {k: float(v) for k, v in cost_functions(f, s.ref).items()
                 if v.ndim == 0}
 
@@ -129,14 +139,18 @@ class ADFLOW:
             device = "cuda:0"
         self.device = torch.device(device)
         self.dtype = resolve_dtype(self.options["precision"], self.device)
-        self._reject_unported_options(kwargs)
+        self._reject_unported_options()
 
         if mesh is None:
             raise _todo("reading 'gridFile'", "13")
         mesh.validate()
         self.mesh = mesh
+        # overset assembly (reference preprocessingoverset -> oversetComm,
+        # oversetAPI.F90:7; the explicit cut callback of pyADflow.py:4370)
+        self._cut_cb = kwargs.pop("cutCallback", None)
         self.topo: MeshTopology = build_topology(
-            mesh, dtype=self.dtype, device=self.device)
+            mesh, cut_callback=self._cut_cb, dtype=self.dtype,
+            device=self.device)
         self.x_list = [torch.as_tensor(b.x, dtype=self.dtype,
                                        device=self.device)
                        for b in mesh.blocks]
@@ -177,13 +191,25 @@ class ADFLOW:
         assert abs(float(opt["gammaConstant"]) - GAMMA) < 1e-12
         self.wall_patches = build_wall_patches(mesh)
         self.flow_patches = build_wall_patches(mesh, include=FLOW_THROUGH_BCS)
+        # overlap weights of overset wall patches and, with useZipperMesh,
+        # the zipper's gap triangles (overset/assembly.py)
+        self.wall_patch_weights = None
+        self.zipper_gaps = None
+        if self.topo.overset is not None:
+            self._overset_surfaces(mesh)
 
-        # wall distance for RANS (reference: wallDistance.F90:129)
+        # wall distance for RANS (reference: wallDistance.F90:129), with the
+        # point -> wall element association of the quick update
+        # (useApproxWallDistance, updateWallDistancesQuickly)
+        self._user_surfaces = []      # addIntegrationSurface
+        self._cp_targets = None       # setTargetCp
         self.extras_list = None
+        self._walldist_assoc = None
         if self.cfg.rans:
             from adflow_torch.geom.walldist import compute_wall_distances
-            d_list = compute_wall_distances(
-                mesh, self.x_list, cutoff=float(opt["wallDistCutoff"]))
+            d_list, self._walldist_assoc = compute_wall_distances(
+                mesh, self.x_list, cutoff=float(opt["wallDistCutoff"]),
+                return_assoc=True)
             self.extras_list = [{"walldist": d} for d in d_list]
 
         self.curAP: Optional[AeroProblem] = None
@@ -194,14 +220,28 @@ class ADFLOW:
         self._ap_winfs: Dict[str, object] = {}
         self.solve_info = None
 
-    def _reject_unported_options(self, kwargs):
+    def _reject_unported_options(self):
         opt = self.options
-        if kwargs.get("cutCallback") is not None:
-            raise _todo("overset cutCallback", "11")
         if int(opt["meshDevices"]) > 1:
             raise _todo("meshDevices > 1", "12")
         if opt["restartFile"]:
             raise _todo("restart files", "13")
+
+    def _overset_surfaces(self, mesh):
+        """The overlap weights of the wall patches and, with
+        ``useZipperMesh``, the zipper's gap triangles, from ``mesh``'s
+        coordinates (host numpy)."""
+        from adflow_torch.overset.assembly import (
+            build_zipper_gaps, overlap_surface_weights)
+        self.wall_patch_weights = overlap_surface_weights(
+            mesh, self.wall_patches)
+        self.zipper_gaps = (
+            build_zipper_gaps(mesh, self.wall_patches,
+                              self.wall_patch_weights)
+            if bool(self.options["useZipperMesh"]) else None)
+
+    def _iblank_list(self):
+        return [bs.iblank for bs in self.topo.blocks]
 
     # ------------------------------------------------------------------
     def _check_volumes(self):
@@ -471,8 +511,9 @@ class ADFLOW:
                                  refs[q], winfs[q])
                 cq = cost_functions(integrate_forces(
                     wfq, self.x_list, self.metrics_list, self.wall_patches,
-                    refs[q], self.cfg, extras_list=self.extras_list),
-                    refs[q])
+                    refs[q], self.cfg, iblank_list=self._iblank_list(),
+                    extras_list=self.extras_list,
+                    patch_weights=self.wall_patch_weights), refs[q])
                 for k in coeffs:
                     coeffs[k].append(float(cq[k]))
             self._ts_stab = stability_derivatives(
@@ -619,8 +660,29 @@ class ADFLOW:
                 src, dtype=self.dtype, device=self.device)
             self.extras_list[bi] = ex
 
-    def addUserSurface(self, *args, **kwargs):
-        raise _todo("user surfaces", "11")
+    def addIntegrationSurface(self, fileName, familyName: str,
+                              isInflow: bool = True):
+        """Add a user-defined integration surface: a triangulated surface
+        inside the domain on which mass flow and mass-averaged totals are
+        integrated, exposed as the cost functions ``<familyName>_mdot``,
+        ``_mavgptot``, ``_mavgttot``, ``_mavgps``, ``_mavgmn`` and ``_area``
+        (reference pyADflow.addIntegrationSurface:780). ``fileName`` is a
+        formatted PLOT3D surface file, or a ``(pts, conn)`` tuple of vertex
+        coordinates (np, 3) and quad or triangle connectivity. The
+        association is made on the host, at the current coordinates."""
+        from adflow_torch.physics.usersurf import (
+            build_integration_surface, read_plot3d_surf)
+        if isinstance(fileName, str):
+            pts, conn = read_plot3d_surf(fileName)
+        else:
+            pts, conn = fileName
+        self._user_surfaces.append(build_integration_surface(
+            self.mesh, self._x_numpy(), pts, conn, familyName,
+            is_inflow=isInflow))
+        self._afns = None        # the adjoint's functions now include it
+
+    def _x_numpy(self):
+        return [x.detach().cpu().double().numpy() for x in self.x_list]
 
     # ------------------------------------------------------------------
     def _filled_w(self):
@@ -636,15 +698,21 @@ class ADFLOW:
         if evalFuncs is None:
             evalFuncs = ap.evalFuncs
         wf = self._filled_w()
+        ibl = self._iblank_list()
         f = integrate_forces(wf, self.x_list, self.metrics_list,
                              self.wall_patches, self.ref, self.cfg,
-                             extras_list=self.extras_list)
+                             iblank_list=ibl, extras_list=self.extras_list,
+                             patch_weights=self.wall_patch_weights,
+                             cp_targets=self._cp_targets,
+                             zipper=self.zipper_gaps)
         f.update(wall_sensors(wf, self.metrics_list, self.wall_patches,
-                              self.ref, x_list=self.x_list))
+                              self.ref, iblank_list=ibl, x_list=self.x_list))
         if self.flow_patches:
             f.update(flow_through(wf, self.metrics_list, self.flow_patches,
                                   self.ref))
         all_funcs = cost_functions(f, self.ref)
+        for surf in self._user_surfaces:
+            all_funcs.update(integrate_user_surface(wf, surf, self.ref))
         if getattr(self, "_ts_stab", None):
             all_funcs.update(self._ts_stab)
         for name in evalFuncs:
@@ -912,6 +980,172 @@ class ADFLOW:
                     precond=lambda v: pc_apply_vec(data_list, nfns.packer,
                                                    v))
         return sol.x.cpu().numpy()
+
+    # ------------------------------------------------------------------
+    # inverse design, diagnostics and the geometry interface (reference:
+    # setTargetCp:3827, setSurfaceCoordinates:3208, updateGeometryInfo:4295,
+    # setGrid/getGrid warping.F90:70,195)
+    # ------------------------------------------------------------------
+    def setTargetCp(self, CpTargets, groupName: Optional[str] = None):
+        """Set the target-Cp distribution for inverse design, consumed by
+        the 'cperror2' cost function (reference pyADflow.setTargetCp:3827,
+        surfaceIntegrations.F90:527). ``CpTargets``: a flat array over the
+        group's wall faces in patch order, each patch row-major over its
+        (T1, T2) face window."""
+        flat = np.asarray(CpTargets, float).ravel()
+        tg = list(self._cp_targets or [None] * len(self.wall_patches))
+        ofs = 0
+        for i, p in enumerate(self.wall_patches):
+            if groupName is not None and p.family != groupName:
+                continue
+            t1, t2 = [p.face_sl[a] for a in range(3) if a != p.axis]
+            s1, s2 = t1.stop - t1.start, t2.stop - t2.start
+            tg[i] = flat[ofs:ofs + s1 * s2].reshape(s1, s2)
+            ofs += s1 * s2
+        if ofs != len(flat):
+            raise ValueError(
+                f"CpTargets length {len(flat)} != group faces {ofs}")
+        self._cp_targets = tg
+
+    def checkMeshQuality(self, warn: bool = True):
+        """Mesh quality report at the current coordinates (reference
+        gridChecking.F90 blockCheck): inverted and twisted cell counts, the
+        smallest volume, the largest skewness and aspect ratio."""
+        from adflow_torch.geom.quality import check_mesh_quality
+        rep = check_mesh_quality(self.mesh, self._x_numpy())
+        if warn and not rep["ok"]:
+            print(f"# WARNING mesh quality: "
+                  f"{rep['n_negative_volumes']} negative volumes, "
+                  f"{rep['n_twisted_cells']} twisted cells "
+                  f"(min vol {rep['min_volume']:.3e})")
+        return rep
+
+    def checkOverset(self, printReport: bool = True) -> dict:
+        """Overset-connectivity report (reference: the ``oversetCheck.py`` /
+        ``checkZipper.py`` diagnostics): counts of compute, fringe and hole
+        cells, interpolation groups, orphans and zipper gap triangles."""
+        out = {"n_blocks": len(self.mesh.blocks),
+               "n_cells": self.mesh.n_cells,
+               "compute": self.mesh.n_cells, "fringe": 0, "hole": 0,
+               "orphans": 0, "groups": 0}
+        tab = self.topo.overset
+        if tab is not None:
+            ibl = np.concatenate([np.ravel(b) for b in tab.iblank])
+            out["compute"] = int((ibl == 1).sum())
+            out["fringe"] = int((ibl == -1).sum())
+            out["hole"] = int((ibl == 0).sum())
+            out["orphans"] = int(tab.n_orphans)
+            out["groups"] = len(tab.groups)
+        gaps = self.zipper_gaps
+        out["zipper_gap_tris"] = 0 if gaps is None else int(gaps.n_tris)
+        if printReport:
+            print(f"Overset check: {out['n_blocks']} blocks, "
+                  f"{out['n_cells']} cells -> {out['compute']} compute, "
+                  f"{out['fringe']} fringe, {out['hole']} hole; "
+                  f"{out['orphans']} orphans; "
+                  f"{out['zipper_gap_tris']} zipper gap triangles")
+        return out
+
+    def getSurfaceCoordinates(self, groupName: Optional[str] = None):
+        """All wall-patch node coordinates, (n, 3) numpy (reference
+        getSurfaceCoordinates:3197)."""
+        pts = [self.x_list[p.block][p.fnode_sl].reshape(-1, 3)
+               for p in self.wall_patches]
+        if not pts:
+            return np.zeros((0, 3))
+        return torch.cat(pts).detach().cpu().double().numpy()
+
+    def setSurfaceCoordinates(self, coords, groupName: Optional[str] = None):
+        """Stage new wall-surface node coordinates, applied (the volume warp
+        and the geometry rebuild) by ``updateGeometryInfo``, like the
+        reference's deferred ``_updateGeomInfo`` flag."""
+        self._pending_surface = np.asarray(coords, float)
+        self._geom_dirty = True
+
+    def updateGeometryInfo(self):
+        """Warp the volume mesh to the staged surface and rebuild the
+        geometry (reference updateGeometryInfo:4295). The warp's anchors
+        are those of the mesh given at construction, as in the JAX
+        package."""
+        if not getattr(self, "_geom_dirty", False):
+            return
+        from adflow_torch.geom.warp import warp_mesh
+        pts0 = self.getSurfaceCoordinates()
+        self.x_list = warp_mesh(self.mesh, self.x_list, pts0,
+                                self._pending_surface - pts0)
+        self._rebuild_geometry()
+        self._geom_dirty = False
+
+    def _warped_mesh(self):
+        """The mesh at the current node coordinates (its BC and connection
+        data shared, only x replaced), for the host rebuilds: the overset
+        donor search, the overlap weights and the zipper."""
+        return MultiBlockMesh(
+            blocks=[dataclasses.replace(b, x=x)
+                    for b, x in zip(self.mesh.blocks, self._x_numpy())],
+            name=self.mesh.name)
+
+    def _rebuild_geometry(self):
+        """Recompute the metrics, the overset table, weights and zipper,
+        and the wall distance (quick with useApproxWallDistance, else the
+        full search) after a change of the node coordinates; drop the
+        Newton and adjoint functions and the cached adjoints, and attach
+        the aero problem again. As in the JAX package, that re-attachment
+        resets the flow to the free stream unless the problem's state was
+        stashed by a switch of problems."""
+        self.metrics_list = compute_metrics_conn(self.mesh.blocks,
+                                                 self.x_list)
+        self._metrics_base = list(self.metrics_list)
+        warped = None
+        if self.topo.overset is not None or self._cut_cb is not None:
+            # donors, weights and iblank are functions of the coordinates
+            # (reference updateOversetConnectivity,
+            # oversetCommUtilites.F90:1729)
+            warped = self._warped_mesh()
+            self.topo = build_topology(warped, cut_callback=self._cut_cb,
+                                       dtype=self.dtype, device=self.device)
+            if self.wall_patch_weights is not None:
+                self._overset_surfaces(warped)
+        if self.cfg.rans:
+            from adflow_torch.geom.walldist import (
+                compute_wall_distances, update_wall_distances)
+            mesh_now = warped if warped is not None else self.mesh
+            cutoff = float(self.options["wallDistCutoff"])
+            if (bool(self.options["useApproxWallDistance"])
+                    and self._walldist_assoc is not None):
+                d_list = update_wall_distances(
+                    mesh_now, self.x_list, self._walldist_assoc,
+                    cutoff=cutoff)
+            else:
+                d_list, self._walldist_assoc = compute_wall_distances(
+                    mesh_now, self.x_list, cutoff=cutoff, return_assoc=True)
+            for ex, d in zip(self.extras_list, d_list):
+                ex["walldist"] = d
+        self._nfns = None
+        self._afns = None
+        self._psi_cache = {}
+        ap, self.curAP = self.curAP, None
+        if ap is not None:
+            self.setAeroProblem(ap)
+
+    def getGrid(self):
+        """Flat volume-node coordinate vector in block order, numpy
+        (reference getGrid, warping.F90:195)."""
+        return np.concatenate([x.reshape(-1) for x in self._x_numpy()])
+
+    def setGrid(self, flat):
+        """Set all volume nodes from a flat vector and rebuild the geometry
+        (reference setGrid, warping.F90:70)."""
+        flat = np.asarray(flat, float)
+        off = 0
+        new = []
+        for x in self.x_list:
+            n = x.numel()
+            new.append(torch.as_tensor(flat[off:off + n].reshape(x.shape),
+                                       dtype=self.dtype, device=self.device))
+            off += n
+        self.x_list = new
+        self._rebuild_geometry()
 
     def setOption(self, name: str, value):
         self.options = self.options.replace(**{name: value})

@@ -11,7 +11,8 @@ Two-stage batched search that stays dense and matmul-shaped:
    near-wall distances stay exact in f32.
 
 TF32 must stay off (adflow_torch/__init__.py): it would perturb the stage-1
-ranking.
+ranking. After a mesh deformation ``update_wall_distances`` re-projects each
+cell centre onto the wall quad the last full search chose for it.
 """
 
 from __future__ import annotations
@@ -139,15 +140,18 @@ def _apply_cutoff(d, cutoff):
 
 
 def compute_wall_distances(mesh: MultiBlockMesh, x_list,
-                           chunk: int = 1 << 15, cutoff: float = None):
+                           chunk: int = 1 << 15, cutoff: float = None,
+                           return_assoc: bool = False):
     """Per-block wall distance on the one-ring extended cell grid
     (ni+2, nj+2, nk+2), edge padded. ``x_list`` holds the node tensors in
-    the working dtype and device. (The JAX package's ``return_assoc``, for
-    the quick update on mesh deformation, is not ported: ROADMAP.md queue 1
-    item 11.)"""
+    the working dtype and device. ``return_assoc=True`` also returns each
+    block's flat winning quad index (int64 tensors on the device, None
+    without walls): the point -> wall element association that
+    ``update_wall_distances`` re-evaluates after a mesh deformation."""
     quads = gather_wall_quads(mesh, x_list)
     centers = torch.mean(quads, dim=1)
     out = []
+    assoc = []
     for x in x_list:
         xc = cell_centers(x)
         shp = xc.shape[:3]
@@ -155,11 +159,40 @@ def compute_wall_distances(mesh: MultiBlockMesh, x_list,
         if quads.shape[0] == 0:
             d = torch.full((flat.shape[0],), FAR_DIST, dtype=x.dtype,
                            device=x.device)
+            assoc.append(None)
         else:
-            d = torch.cat([
-                _nearest_quad_dist_assoc(flat[s:s + chunk], quads,
-                                         centers)[0]
-                for s in range(0, flat.shape[0], chunk)])
+            parts = [_nearest_quad_dist_assoc(flat[s:s + chunk], quads,
+                                              centers)
+                     for s in range(0, flat.shape[0], chunk)]
+            d = torch.cat([p[0] for p in parts])
+            assoc.append(torch.cat([p[1] for p in parts]))
+        d = pad_like_numpy(d.reshape(shp), 1, "edge")
+        out.append(_apply_cutoff(torch.clamp(d, min=1e-14), cutoff))
+    if return_assoc:
+        return out, assoc
+    return out
+
+
+def update_wall_distances(mesh: MultiBlockMesh, x_list, assoc,
+                          cutoff: float = None):
+    """The quick wall-distance update after a mesh deformation (reference
+    updateWallDistancesQuickly, wallDistance.F90:36, option
+    useApproxWallDistance): each cell centre is projected onto its stored
+    nearest wall quad (``assoc`` from the last full search) at the quad's
+    new coordinates, exact where the nearest element did not change, O(n)
+    instead of O(n M)."""
+    quads = gather_wall_quads(mesh, x_list)
+    out = []
+    for x, a in zip(x_list, assoc):
+        xc = cell_centers(x)
+        shp = xc.shape[:3]
+        flat = xc.reshape(-1, 3)
+        if a is None or quads.shape[0] == 0:
+            d = torch.full((flat.shape[0],), FAR_DIST, dtype=x.dtype,
+                           device=x.device)
+        else:
+            d = _project_points_quads(flat, quads[torch.as_tensor(
+                a, dtype=torch.int64, device=x.device)])
         d = pad_like_numpy(d.reshape(shp), 1, "edge")
         out.append(_apply_cutoff(torch.clamp(d, min=1e-14), cutoff))
     return out

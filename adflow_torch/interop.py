@@ -93,3 +93,22 @@ def params_from_numpy(params, device="cpu", dtype=torch.float64):
     """The adjoint's design variables from the JAX package's ``_ap_params``
     dict (its values as numpy): each a tensor on ``device``."""
     return {k: _tensor(v, device, dtype) for k, v in dict(params).items()}
+
+
+def overset_table_from_numpy(table, dtype=torch.float64, device="cpu"):
+    """The port's device overset table (``overset.assembly.device_table``)
+    from the JAX package's ``OversetTable``: its groups' ``dst_block``,
+    ``src_block``, ``dst_flat``, ``src_flat``, ``weights`` and
+    ``priority``, its ``iblank`` arrays and ``n_orphans``."""
+    from adflow_torch.overset.assembly import (
+        OversetGroup, OversetTable, device_table)
+
+    groups = tuple(OversetGroup(
+        dst_block=int(g.dst_block), src_block=int(g.src_block),
+        dst_flat=np.asarray(g.dst_flat), src_flat=np.asarray(g.src_flat),
+        weights=np.asarray(g.weights), priority=int(g.priority))
+        for g in table.groups)
+    host = OversetTable(groups=groups,
+                        iblank=tuple(np.asarray(b) for b in table.iblank),
+                        n_orphans=int(table.n_orphans))
+    return device_table(host, dtype, device)

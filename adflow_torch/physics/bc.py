@@ -8,12 +8,13 @@ application. ``apply_bcs`` copies the padded state once and writes the ghost
 layers of the copy, so the caller's tensor is never modified.
 
 Every branch of the JAX package's ``_ghost_state`` is ported, with the
-moving walls of ALE grid motion and the wall functions (Spalding's law);
-overset faces are item 11. Where the JAX package takes ``float()`` of the
-free stream (the mass-flow inflow, the prescribed-state inflow with data
-and DOMAIN_INTERFACE_RHO), it cannot trace them: under ``jax.jit`` or a
-derivative in the flow conditions ``float()`` of the traced free stream
-raises. The port keeps the free stream a tensor there: a ``float()`` under
+moving walls of ALE grid motion and the wall functions (Spalding's law).
+Overset faces, like block-to-block ones, get no BC fill: their ghosts are
+interpolated from donor blocks (overset/assembly.py). Where the JAX
+package takes ``float()`` of the free stream (the mass-flow inflow, the
+prescribed-state inflow with data and DOMAIN_INTERFACE_RHO), it cannot
+trace them: under ``jax.jit`` or a derivative in the flow conditions
+``float()`` of the traced free stream raises. The port keeps the free stream a tensor there: a ``float()`` under
 ``torch.func`` would drop its derivative silently, and a host copy would
 stall the card at every fill. The values are the same.
 """
@@ -72,10 +73,6 @@ def build_bc_ops(block: Block) -> List[BCOp]:
     dims = (ni, nj, nk)
     ops: List[BCOp] = []
     for sf in block.bcs:
-        if sf.bc is BCType.OVERSET:
-            raise NotImplementedError(
-                "overset faces are not ported yet (ROADMAP.md queue 1 "
-                "item 11)")
         face = sf.face
         ax = face.axis
         t1, t2 = _tangential_axes(ax)
@@ -174,7 +171,7 @@ def apply_bcs(w, metrics, ops: Sequence[BCOp], ref: ReferenceState, winf):
     copy = _records(w, metrics, ref, winf)
     w = w.clone()
     for op in ops:
-        if op.bc is BCType.B2B_MATCH:
+        if op.bc is BCType.B2B_MATCH or op.bc is BCType.OVERSET:
             continue
         nhat = _outward_normals(metrics, op)
         aux = _wall_aux(metrics, op, ref)

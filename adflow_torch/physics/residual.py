@@ -2,12 +2,14 @@
 adflow_tpu/physics/residual.py).
 
 Pipeline per evaluation:
-  physical BCs -> b2b halo exchange -> physical BCs (corner fix-up)
+  physical BCs -> b2b halo exchange [-> overset fringe interpolation]
+  -> physical BCs (corner fix-up)
   -> per block: the fused RANS-SA kernel (ops/cuda_rans.py) on CUDA f32,
      else the inviscid fluxes: upwind or central + matrix dissipation
      (physics/upwind.py, plain), else central + JST (the inviscid kernel,
      ops/cuda_inviscid.py, on CUDA f32) [-> viscous -> turbulence:
-     SA or SST] [-> actuator sources] -> R.
+     SA or SST] [-> actuator sources] -> R [* iblank mask on overset
+     meshes: fringe and hole rows zeroed].
 """
 
 from __future__ import annotations
@@ -22,6 +24,8 @@ from adflow_torch.core.mesh import WALL_BCS, BCType, MultiBlockMesh
 from adflow_torch.core.refstate import ReferenceState
 from adflow_torch.dist.halo import ConnOp, build_conn_ops, exchange_halos_list
 from adflow_torch.geom.metrics import BlockMetrics
+from adflow_torch.overset.assembly import (
+    apply_overset, build_overset, device_table, iblank_masks)
 from adflow_torch.physics.bc import BCOp, apply_bcs, build_bc_ops
 from adflow_torch.physics.fluxes import inviscid_residual
 from adflow_torch.physics.sa import second_order
@@ -90,12 +94,15 @@ class ProblemConfig:
 
 @dataclasses.dataclass(frozen=True)
 class BlockStatic:
-    """Per-block static metadata (shapes, BC slices, face porosities as
-    tensors on the solver's device)."""
+    """Per-block static metadata (shapes, BC slices, face porosities and
+    the overset compute mask as tensors on the solver's device)."""
 
     dims: Tuple[int, int, int]
     bc_ops: Tuple[BCOp, ...]
     por: Optional[tuple] = None   # (porI, porJ, porK) tensors
+    # overset compute mask (ni, nj, nk, 1): 1 compute, 0 fringe/hole (the
+    # reference's iblank, modules/block.F90 / oversetAPI.F90)
+    iblank: Optional[torch.Tensor] = None
 
 
 def _build_porosities(block) -> tuple:
@@ -125,35 +132,50 @@ class MeshTopology:
 
     blocks: Tuple[BlockStatic, ...]
     conn_ops: Tuple[ConnOp, ...]
+    # overset/assembly.py's OversetTable, its groups on the device
+    # (``device_table``)
+    overset: Optional[object] = None
 
 
 def build_topology(mesh: MultiBlockMesh, cut_callback=None,
                    dtype=torch.float64, device="cpu") -> MeshTopology:
-    """Static topology; porosities become ``dtype`` tensors on ``device``
-    once, here. Overset meshes are not ported (ROADMAP.md queue 1 item 11)."""
-    if cut_callback is not None or any(
-            sf.bc is BCType.OVERSET for b in mesh.blocks for sf in b.bcs):
-        raise NotImplementedError(
-            "overset meshes (ROADMAP.md queue 1 item 11)")
+    """Static topology; porosities, the overset table's indices and weights
+    and the iblank masks become tensors on ``device`` once, here. A mesh
+    with an OVERSET face, or a ``cut_callback`` (block index, cell centres
+    (n, 3)) -> hole mask, is assembled on the host by
+    ``overset.assembly.build_overset``."""
+    has_ovs = any(sf.bc is BCType.OVERSET
+                  for b in mesh.blocks for sf in b.bcs)
+    ovs = (build_overset(mesh, cut_callback=cut_callback)
+           if (has_ovs or cut_callback is not None) else None)
+    masks = iblank_masks(ovs, len(mesh.blocks), [b.dims for b in mesh.blocks])
     blocks = []
-    for b in mesh.blocks:
+    for b, ib in zip(mesh.blocks, masks):
         por = tuple(torch.as_tensor(p, dtype=dtype, device=device)
                     for p in _build_porosities(b))
-        blocks.append(BlockStatic(dims=b.dims, bc_ops=tuple(build_bc_ops(b)),
-                                  por=por))
+        blocks.append(BlockStatic(
+            dims=b.dims, bc_ops=tuple(build_bc_ops(b)), por=por,
+            iblank=(None if ib is None else
+                    torch.as_tensor(ib, dtype=dtype, device=device))))
     return MeshTopology(blocks=tuple(blocks),
-                        conn_ops=tuple(build_conn_ops(mesh)))
+                        conn_ops=tuple(build_conn_ops(mesh)),
+                        overset=device_table(ovs, dtype, device))
 
 
 def fill_halos(w_list, metrics_list, topo: MeshTopology,
                ref: ReferenceState, winf):
-    """BC -> exchange -> BC sequence filling every ghost cell. The second BC
-    pass makes every ghost a pure function of the interior (corner ghosts
-    that no BC writes keep what the first pass and the exchange left)."""
+    """BC -> exchange [-> overset fringe update] -> BC sequence filling
+    every ghost cell. The second BC pass makes every ghost a pure function
+    of the interior (corner ghosts that no BC writes keep what the first
+    pass and the exchange left). The overset update runs after the exchange
+    (reference: wOverset inside whalo2, haloExchange.F90:1330), so donors
+    read freshly exchanged values."""
     w_list = [apply_bcs(w, m, bs.bc_ops, ref, winf)
               for w, m, bs in zip(w_list, metrics_list, topo.blocks)]
     if topo.conn_ops:
         w_list = exchange_halos_list(w_list, topo.conn_ops)
+    if topo.overset is not None:
+        w_list = apply_overset(w_list, topo.overset)
     return [apply_bcs(w, m, bs.bc_ops, ref, winf)
             for w, m, bs in zip(w_list, metrics_list, topo.blocks)]
 
@@ -266,9 +288,17 @@ def _actuator_sources(r, w, extras):
 def residual_list(w_list, metrics_list, topo: MeshTopology,
                   cfg: ProblemConfig, ref: ReferenceState, winf,
                   extras_list: Optional[Sequence[dict]] = None):
-    """Full multiblock residual: halo fill + per-block residuals."""
+    """Full multiblock residual: halo fill + per-block residuals. On an
+    overset mesh each block's residual is multiplied by its iblank mask:
+    the fringe and hole states are overwritten by interpolation every fill,
+    so their rows are dead and GMRES stays regular in the compute
+    subspace."""
     w_list = fill_halos(w_list, metrics_list, topo, ref, winf)
-    return [block_residual(w, m, cfg, ref,
+    out = []
+    for i, (w, m) in enumerate(zip(w_list, metrics_list)):
+        bs = topo.blocks[i]
+        r = block_residual(w, m, cfg, ref,
                            extras_list[i] if extras_list else None,
-                           por=topo.blocks[i].por)
-            for i, (w, m) in enumerate(zip(w_list, metrics_list))]
+                           por=bs.por)
+        out.append(r if bs.iblank is None else r * bs.iblank)
+    return out

@@ -5,9 +5,11 @@ Pressure force on a wall face: F += (p_face - pInf) * S_out, with S_out the
 face area vector pointing out of the fluid. Viscous stress uses the same
 face flux as the viscous residual. ``flow_through`` integrates the mass
 flow and the mass- and area-averaged totals over inflow and outflow
-planes. Overset weights, the zipper mesh, cp-target inverse design and
-the family-restricted functions are not ported (ROADMAP.md queue 1 items
-11 and 13).
+planes. On overset meshes the wall faces over fringe and hole cells are
+masked out (``patch_iblank_mask``), overlapping patches carry the overlap
+weights and the zipper's gap triangles take their data face's pressure and
+traction (overset/assembly.py); ``cperror2`` is the cp-target inverse-design
+objective. The family-restricted functions are ROADMAP.md queue 1 item 13.
 """
 
 from __future__ import annotations
@@ -94,6 +96,18 @@ def _patch_face_centers(x, patch: WallPatch):
     return 0.25 * (corner(0, 0) + corner(1, 0) + corner(0, 1) + corner(1, 1))
 
 
+def patch_iblank_mask(iblank_list, patch):
+    """(T1, T2) weight of a wall patch's faces: 1 where the adjacent cell
+    computes, 0 at overset fringe/hole wall cells (the simplified stand-in
+    for the reference's zipper mesh, overset/zipperMesh.F90:18, which
+    removes overlapped surface quads before integration)."""
+    if iblank_list is None or iblank_list[patch.block] is None:
+        return None
+    ibp = torch.nn.functional.pad(iblank_list[patch.block],
+                                  (0, 0, 2, 2, 2, 2, 2, 2), value=1.0)
+    return ibp[patch.int_sl][..., 0]
+
+
 def wall_viscous_tractions(w, m, cfg, ref, patch: WallPatch, extras=None,
                            cache=None):
     """Viscous traction (force-per-face 3-vector ON THE BODY) at a wall
@@ -115,9 +129,18 @@ def wall_viscous_tractions(w, m, cfg, ref, patch: WallPatch, extras=None,
 
 def integrate_forces(w_list, x_list, metrics_list,
                      patches: Sequence[WallPatch], ref: ReferenceState,
-                     cfg=None, extras_list=None) -> Dict[str, torch.Tensor]:
+                     cfg=None, iblank_list=None, extras_list=None,
+                     patch_weights=None, cp_targets=None,
+                     zipper=None) -> Dict[str, torch.Tensor]:
     """Integrated force + moment vectors (nondim), pressure and viscous
-    parts, plus the center-of-force sums. Halos of w must be filled."""
+    parts, plus the center-of-force sums. Halos of w must be filled.
+    ``iblank_list``: the topology's per-block compute masks (or None);
+    ``patch_weights``: per-patch (T1, T2) face weights, the overlap
+    deduplication of overset surfaces (``overlap_surface_weights``);
+    ``zipper``: a ``ZipperGaps`` whose gap triangles take their data face's
+    pressure and traction (reference zipperIntegrations.F90);
+    ``cp_targets``: per-patch (T1, T2) target Cp or None, adding
+    ``cperror2`` = sum (Cp - Cp_target)^2 dA (surfaceIntegrations.F90:527)."""
     like = w_list[0]
     kw = dict(dtype=like.dtype, device=like.device)
     force_p = torch.zeros(3, **kw)
@@ -125,14 +148,22 @@ def integrate_forces(w_list, x_list, metrics_list,
     moment = torch.zeros(3, **kw)
     cof = torch.zeros((3, 3), **kw)
     cof_lift = torch.zeros(3, **kw)
+    cp_err2 = torch.zeros((), **kw)
     ld = torch.as_tensor(ref.lift_dir, **kw)
     xref = torch.as_tensor(ref.moment_ref, **kw)
     visc_cache = {}
-    for patch in patches:
+    for ip, patch in enumerate(patches):
         w = w_list[patch.block]
         m = metrics_list[patch.block]
         s = (m.si, m.sj, m.sk)[patch.axis]
         s_out = patch.sign * s[patch.face_sl]          # out of the fluid
+        mask = patch_iblank_mask(iblank_list, patch)
+        pw = patch_weights[ip] if patch_weights is not None else None
+        if pw is not None:
+            pw = torch.as_tensor(pw, **kw)
+            mask = pw if mask is None else mask * pw
+        if mask is not None:
+            s_out = s_out * mask[..., None]
         p_face = 0.5 * (pressure(w[patch.int_sl]) + pressure(w[patch.ghost_sl]))
         dfp = (p_face - ref.p_inf)[..., None] * s_out
         xc = _patch_face_centers(x_list[patch.block], patch)
@@ -144,14 +175,88 @@ def integrate_forces(w_list, x_list, metrics_list,
             ex = extras_list[patch.block] if extras_list is not None else None
             dfv = wall_viscous_tractions(w, m, cfg, ref, patch, extras=ex,
                                          cache=visc_cache)
+            if mask is not None:
+                dfv = dfv * mask[..., None]
             force_v = force_v + torch.sum(dfv, dim=(0, 1))
             moment = moment + torch.sum(
                 torch.linalg.cross(xc - xref, dfv, dim=-1), dim=(0, 1))
             df = df + dfv
         cof = cof + torch.einsum("tki,tkj->ij", df, xc)
         cof_lift = cof_lift + torch.einsum("tk,tkj->j", df @ ld, xc)
-    return {"force_p": force_p, "force_v": force_v, "moment": moment,
-            "cof": cof, "cof_lift": cof_lift}
+        tgt = cp_targets[ip] if cp_targets is not None else None
+        if tgt is not None:
+            q = ref.q_inf
+            cp = (p_face - ref.p_inf) / (torch.clamp(q, min=1e-30)
+                                         if torch.is_tensor(q)
+                                         else max(q, 1e-30))
+            da = torch.linalg.norm(s_out, dim=-1)
+            cp_err2 = cp_err2 + torch.sum(
+                (cp - torch.as_tensor(tgt, **kw)) ** 2 * da)
+    if zipper is not None and zipper.n_tris:
+        f = _zipper_forces(w_list, metrics_list, patches, ref, cfg,
+                           extras_list, zipper, visc_cache, ld, xref)
+        force_p, force_v, moment = (force_p + f[0], force_v + f[1],
+                                    moment + f[2])
+        cof, cof_lift = cof + f[3], cof_lift + f[4]
+    out = {"force_p": force_p, "force_v": force_v, "moment": moment,
+           "cof": cof, "cof_lift": cof_lift}
+    if cp_targets is not None:
+        out["cperror2"] = cp_err2
+    return out
+
+
+def _zipper_forces(w_list, metrics_list, patches, ref, cfg, extras_list,
+                   zipper, visc_cache, ld, xref):
+    """The zipper gap triangles' (force_p, force_v, moment, cof, cof_lift):
+    each triangle, oriented by its data face's outward normal, takes that
+    face's pressure and its viscous traction per area."""
+    import numpy as np
+
+    like = w_list[0]
+    kw = dict(dtype=like.dtype, device=like.device)
+    force_p = torch.zeros(3, **kw)
+    force_v = torch.zeros(3, **kw)
+    moment = torch.zeros(3, **kw)
+    cof = torch.zeros((3, 3), **kw)
+    cof_lift = torch.zeros(3, **kw)
+    for pi in np.unique(zipper.patch_idx):
+        patch = patches[int(pi)]
+        msel = zipper.patch_idx == pi
+        w = w_list[patch.block]
+        m = metrics_list[patch.block]
+        s = (m.si, m.sj, m.sk)[patch.axis]
+        s_out = patch.sign * s[patch.face_sl]   # unmasked: data faces
+        p_face = 0.5 * (pressure(w[patch.int_sl])
+                        + pressure(w[patch.ghost_sl]))
+        idx = torch.as_tensor(zipper.face_flat[msel], dtype=torch.int64,
+                              device=like.device)
+        pg = p_face.reshape(-1)[idx]
+        nf = s_out.reshape(-1, 3)[idx]
+        sv = torch.as_tensor(zipper.svec[msel], **kw)
+        sgn = torch.sign(torch.sum(sv * nf, dim=-1))
+        sv = sv * torch.where(sgn == 0.0, torch.ones_like(sgn), sgn)[..., None]
+        cen = torch.as_tensor(zipper.centroid[msel], **kw)
+        dfp = (pg - ref.p_inf)[..., None] * sv
+        force_p = force_p + torch.sum(dfp, dim=0)
+        moment = moment + torch.sum(
+            torch.linalg.cross(cen - xref, dfp, dim=-1), dim=0)
+        df = dfp
+        if patch.bc in VISCOUS_WALL_BCS and cfg is not None and cfg.viscous:
+            ex = extras_list[patch.block] if extras_list is not None else None
+            dfv_face = wall_viscous_tractions(w, m, cfg, ref, patch,
+                                              extras=ex, cache=visc_cache)
+            a_face = torch.linalg.norm(s_out, dim=-1).reshape(-1)[idx]
+            a_tri = torch.linalg.norm(sv, dim=-1)
+            tv = (dfv_face.reshape(-1, 3)[idx]
+                  / torch.clamp(a_face, min=1e-30)[..., None]
+                  * a_tri[..., None])
+            force_v = force_v + torch.sum(tv, dim=0)
+            moment = moment + torch.sum(
+                torch.linalg.cross(cen - xref, tv, dim=-1), dim=0)
+            df = df + tv
+        cof = cof + torch.einsum("ti,tj->ij", df, cen)
+        cof_lift = cof_lift + torch.einsum("t,tj->j", df @ ld, cen)
+    return force_p, force_v, moment, cof, cof_lift
 
 
 def cost_functions(forces: Dict[str, torch.Tensor], ref: ReferenceState
@@ -217,7 +322,8 @@ def cost_functions(forces: Dict[str, torch.Tensor], ref: ReferenceState
         out["sepsensoravgx"] = forces["sepavg"][0]
         out["sepsensoravgy"] = forces["sepavg"][1]
         out["sepsensoravgz"] = forces["sepavg"][2]
-    for k in ("sepsensor", "cavitation", "cpmin_exact", "area"):
+    for k in ("sepsensor", "cavitation", "cpmin_exact", "area",
+              "cperror2"):
         if k in forces:
             out[k] = forces[k]
     # flow-through functions (mdot, mavgptot, ...); "area" becomes the
@@ -235,10 +341,12 @@ CAVITATION_RHO = 100.0  # KS sharpness for cpmin aggregation
 
 
 def wall_sensors(w_list, metrics_list, patches: Sequence[WallPatch],
-                 ref: ReferenceState, x_list=None) -> Dict[str, torch.Tensor]:
+                 ref: ReferenceState, iblank_list=None,
+                 x_list=None) -> Dict[str, torch.Tensor]:
     """Separation sensor (KS-smoothed backflow area fraction), its centroid
     sums and the cavitation sensor (reference
-    surfaceIntegrations.F90:406-520)."""
+    surfaceIntegrations.F90:406-520); overset fringe and hole faces
+    masked out."""
     like = w_list[0]
     kw = dict(dtype=like.dtype, device=like.device)
     sep = torch.zeros((), **kw)
@@ -252,6 +360,9 @@ def wall_sensors(w_list, metrics_list, patches: Sequence[WallPatch],
         m = metrics_list[patch.block]
         s = (m.si, m.sj, m.sk)[patch.axis]
         da = torch.linalg.norm(patch.sign * s[patch.face_sl], dim=-1)
+        msk = patch_iblank_mask(iblank_list, patch)
+        if msk is not None:
+            da = da * msk
         wi = w[patch.int_sl]
         v = wi[..., IMX:IMZ + 1] / wi[..., IRHO:IRHO + 1]
         vmag = torch.linalg.norm(v, dim=-1, keepdim=True)

@@ -81,7 +81,25 @@ well). Then, each phase timed:
   [25]     small cases, card against CPU with exact launch counts: a '2w'
            multigrid solve of the RANS-SA wing with its start (K1), DADI,
            an AMG ANK step and the AMG-transposed adjoint, BDF2, RK4 and
-           time spectral on the Euler wing (K2).
+           time spectral on the Euler wing (K2);
+  [26]     overset at full width: the viscous NACA 0012 O-mesh at
+           256x64x64 (its JMAX face OVERSET) in the 130x67x72 Cartesian
+           background ``cartesian_background`` makes, implicit hole cut,
+           RANS-SA through ``ADFLOW``: the assembly timed, 1 ANK step (K1 on
+           both blocks, exact launches) under torch.profiler,
+           K1 against its plain version on the background block, the fill
+           against an f64 fill on the CPU at every receiver; then
+           ``setSurfaceCoordinates`` with a bump and ``updateGeometryInfo``
+           (the warp against an f64 warp on the CPU, the quick wall distance
+           against a full search), ``checkMeshQuality``, ``checkOverset``, 1
+           ANK step and ``evalFunctionsSens(cl)`` (20 GMRES iterations, xv);
+           the peak device memory;
+  [27]     small overset cases, card against CPU with exact launch counts:
+           box-in-box with its cut (K2: residual, 1 ANK step), the airfoil in
+           its background (RANS, K1: residual, 1 ANK step), the two-patch
+           zipper mesh's forces, a user surface on the channel, cperror2 and
+           its adjoint, the overset airfoil's adjoint of cl, a warp with the
+           quick wall-distance update.
 Any failed check raises, so the exit code is not 0. The last line is
 ``{"ok": true, "device": {...}}``; the line before it lists the kernels with
 their launches, errors and times (``ms`` by CUDA events around calls of the
@@ -246,6 +264,56 @@ SMALL_MG_OPTS = {"MGCycle": "2w", "CFLCoarse": 0.25, "nCyclesCoarse": 25,
 SMALL_MG_CYCLES = 5
 SMALL_HIST_RTOL = SOLVE_RTOL   # [4]'s small-RK tolerance
 
+# [26], overset meshes and the geometry tail at full width: the viscous
+# NACA 0012 O-mesh at the main path's cell count (its JMAX face OVERSET, the
+# z faces symmetry planes, as the JAX package's overset tests extrude it) in
+# the Cartesian background ``cartesian_background`` makes around it
+# (130x67x72, 1,675,696 cells in all), implicit hole cut. The background's
+# uniform core hugs the wall's bounding box (margin 0): with symmetry planes
+# the JAX package's generator, which the port copies, leaves inverted cells
+# between the core's start and the clip wherever the spacing is below the
+# margin (ROADMAP.md section 3), and at the default margin 0.25 and the
+# issue's scale 2.5 both packages refuse that mesh. RANS-SA at M 0.5, alpha 2, Re 1e6 on the chord, T 300 K, default
+# options (ANK). Depth: OVS_STEPS[0] ANK step (under the profiler, device
+# events only: the host events of its 237,000 device ops took 315 s to
+# aggregate), the shape change (a smooth bump of OVS_BUMP chords on the upper
+# surface, the IDW warp, the re-assembly and the quick wall-distance
+# update), OVS_STEPS[1] more step and the adjoint of cl cut to OVS_ADJ_ITERS
+# GMRES iterations
+OVS_NEAR = dict(ni=256, nj=64, nk=64, radius=1.5, viscous=True)
+OVS_BG = dict(scale=1.25, margin=0.0)
+OVS_AP = dict(name="ovs", mach=0.5, alpha=2.0, reynolds=1e6,
+              reynoldsLength=1.0, T=300.0, evalFuncs=["cl", "cd"])
+OVS_STEPS = (1, 1)
+OVS_BUMP = 0.005
+OVS_ADJ_ITERS = 20
+# the card's f32 warp against an f64 warp on the CPU of WARP_SAMPLE seeded
+# nodes a block (the warp is pointwise, so a sample is exact): of the
+# displacement scale, beyond half an f32 ulp of the coordinate, which the
+# f32 node array itself rounds to
+WARP_RTOL = 1e-5
+WARP_SAMPLE = 20000
+# wall distances in f32 against f64, absolute, in chords: about 16 f32
+# ulps of the small background's largest coordinates (7 chords); relative
+# to a first cell 1e-5 from the wall such rounding is 1e-2
+WALLDIST_ATOL = 1e-5
+# [27], the small overset cases of the CPU tests, card (f32) against the CPU
+# (f64): the box-in-box Euler mesh with its explicit cut (12 and 14 cells a
+# side), the 40x10 airfoil in its generated background (scale 4, far 6),
+# the two-patch zipper mesh (24 and 15 cells along x, overlap 0.2), a
+# user surface on the channel
+OVS_SMALL_AIRFOIL = dict(ni=40, nj=10, nk=2, radius=1.2)
+OVS_SMALL_BG = dict(scale=4.0, far=6.0)
+OVS_SMALL_AP = dict(name="ov", mach=0.5, alpha=2.0, reynolds=1e6,
+                    reynoldsLength=1.0, T=300.0, evalFuncs=["cl", "cd"])
+# the overset airfoil's adjoint and cperror2's: a fixed 40 GMRES iterations
+# in one cycle, the same on both devices (the overset airfoil's, whose
+# fringe rows are zero rows, is unconverged after 300 on both, where f32
+# and f64 part ways)
+OVS_ADJ_OPTS = {"adjointSubspaceSize": 40, "adjointMaxIter": 40,
+                "adjointL2Convergence": 1e-14}
+SURF_FUNCS = ("mdot", "mavgptot", "mavgttot", "mavgps", "mavgmn", "area")
+
 # peak rates for the bound: (device-memory bytes/s, f32 FLOP/s outside the
 # tensor cores), NVIDIA data sheets; the SXM part is the default
 PEAKS = (("H100 PCIe", 2.0e12, 51e12), ("H100 NVL", 3.9e12, 60e12),
@@ -398,13 +466,14 @@ def main_path():
     return solver, launches
 
 
-def main_path_operands(solver):
-    """K1's operands and constants as the main path gives them, at the
-    solver's current state."""
-    w = solver._filled_w()[0]
-    m = solver.metrics_list[0]
+def main_path_operands(solver, block=0):
+    """K1's operands and constants as the main path gives them to
+    ``block``, at the solver's current state."""
+    w = solver._filled_w()[block]
+    m = solver.metrics_list[block]
     tensors = [w, m.siE, m.sjE, m.skE, m.vol, m.xc_ext,
-               solver.extras_list[0]["walldist"], *solver.topo.blocks[0].por]
+               solver.extras_list[block]["walldist"],
+               *solver.topo.blocks[block].por]
     cfg, ref = solver.cfg, solver.ref
     consts = (cfg.vis2, cfg.vis4, cfg.diss_exponent, ref.mu_inf,
               ref.t_inf_dim, cfg.use_ft2, cfg.turb_scales[0])
@@ -1095,13 +1164,14 @@ def matrix_path(scalar_pc_ms):
     return k1, k2
 
 
-def small_state(device, mesh, ap, options, w0=None):
-    """A solver of ``mesh`` on ``device`` at the seeded perturbed free
-    stream of ``ap`` (``w0``, else made here); returns (solver, w0)."""
+def small_state(device, mesh, ap, options, w0=None, **kwargs):
+    """A solver of ``mesh`` on ``device`` (constructor ``kwargs``) at the
+    seeded perturbed free stream of ``ap`` (``w0``, else made here);
+    returns (solver, w0)."""
     from adflow_torch.api.solver import ADFLOW
     from adflow_torch.core.refstate import AeroProblem
 
-    solver = ADFLOW(options=options, mesh=mesh, device=device)
+    solver = ADFLOW(options=options, mesh=mesh, device=device, **kwargs)
     solver.setAeroProblem(AeroProblem(**ap))
     w0 = perturbed_state(solver) if w0 is None else w0
     solver.setStates(w0)
@@ -2098,6 +2168,616 @@ def small_solvers_parity():
     return k1_all, k2_all
 
 
+# ---------------------------------------------------------------------------
+# [26]-[27]: overset meshes and the geometry tail
+# ---------------------------------------------------------------------------
+
+def overset_airfoil_mesh(ni, nj, nk, radius, viscous, **background):
+    """The NACA 0012 O-mesh with its JMAX face OVERSET (the receiver) in the
+    Cartesian background ``cartesian_background(**background)`` generates
+    around it, symmetry planes in z."""
+    import dataclasses
+
+    from adflow_torch.core.mesh import BCType, Face, MultiBlockMesh
+    from adflow_torch.meshgen.analytic import naca0012_omesh
+    from adflow_torch.meshgen.cartmesh import cartesian_background
+
+    near = naca0012_omesh(ni=ni, nj=nj, nk=nk, radius=radius,
+                          viscous=viscous).blocks[0]
+    bcs = [dataclasses.replace(sf, bc=BCType.OVERSET, family="ovs")
+           if sf.face is Face.JMAX else sf for sf in near.bcs]
+    near = MultiBlockMesh([dataclasses.replace(near, bcs=bcs)], name="near")
+    return cartesian_background(near, sym_planes=("zlow", "zhigh"),
+                                **background)
+
+
+def box_in_box_mesh(n_bg=12, n_in=14):
+    """The far-field box [0,1]^3 and an inner box [0.25,0.75]^3 with OVERSET
+    faces (tests/test_overset.py)."""
+    from adflow_torch.core.mesh import (
+        BCSubface, BCType, Block, Face, MultiBlockMesh)
+    from adflow_torch.meshgen.analytic import cube_mesh
+
+    xs = [np.linspace(0.25, 0.75, n_in + 1)] * 3
+    inner = Block(name="inner",
+                  x=np.stack(np.meshgrid(*xs, indexing="ij"), axis=-1),
+                  bcs=[BCSubface(face=f, bc=BCType.OVERSET, family="ovs")
+                       for f in Face])
+    return MultiBlockMesh([cube_mesh(n=n_bg).blocks[0], inner],
+                          name="boxbox")
+
+
+def box_cut(bi, centers):
+    """The explicit cut: a hole in the background under the inner core."""
+    if bi != 0:
+        return np.zeros(len(centers), bool)
+    return np.max(np.abs(centers - 0.5), axis=1) < 0.1
+
+
+def two_patch_mesh(overlap=0.2, n1=24, n2=15):
+    """Two disconnected boxes whose z-min viscous walls overlap in x by
+    ``overlap`` and together cover [0,1]^2 (tests/test_zipper.py)."""
+    from adflow_torch.core.mesh import (
+        BCSubface, BCType, Block, Face, MultiBlockMesh)
+
+    def box(name, x0, x1, nx):
+        x = np.stack(np.meshgrid(np.linspace(x0, x1, nx + 1),
+                                 np.linspace(0.0, 1.0, 9),
+                                 np.linspace(0.0, 0.5, 5), indexing="ij"),
+                     axis=-1)
+        bcs = [BCSubface(face=Face(f), bc=BCType.FARFIELD, family="far")
+               for f in (0, 1, 2, 3, 5)]
+        bcs.append(BCSubface(face=Face(4), bc=BCType.NS_WALL_ADIABATIC,
+                             family="wall"))
+        return Block(name=name, x=x, bcs=bcs)
+
+    return MultiBlockMesh([box("fine", 0.0, 0.6, n1),
+                           box("coarse", 0.6 - overlap, 1.0, n2)],
+                          name="twopatch")
+
+
+def bumped(pts, height):
+    """Wall nodes with the upper surface (y > 0, 0 <= x <= 1) raised by a
+    smooth bump of ``height`` chords."""
+    x = np.clip(pts[:, 0], 0.0, 1.0)
+    out = pts.copy()
+    out[:, 1] += np.where(pts[:, 1] > 0.0,
+                          height * np.sin(np.pi * x) ** 2, 0.0)
+    return out
+
+
+class CallTimes:
+    """Wall seconds of each call of ``module.name`` while active (the
+    attribute is swapped for a timing wrapper and restored on exit)."""
+
+    def __init__(self, module, name):
+        self.module, self.name, self.seconds = module, name, []
+
+    def __enter__(self):
+        fn = self.orig = getattr(self.module, self.name)
+
+        def timed(*a, **k):
+            if torch.cuda.is_available():
+                torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*a, **k)
+            if torch.cuda.is_available():
+                torch.cuda.synchronize()
+            self.seconds.append(time.perf_counter() - t0)
+            return out
+
+        setattr(self.module, self.name, timed)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.module, self.name, self.orig)
+
+
+def _table_on_cpu(table):
+    """A device overset table's groups on the CPU in f64."""
+    import dataclasses
+
+    return dataclasses.replace(table, groups=tuple(dataclasses.replace(
+        g, dst_flat=g.dst_flat.cpu(), src_flat=g.src_flat.cpu(),
+        weights=g.weights.double().cpu()) for g in table.groups))
+
+
+def _topology_on_cpu(topo):
+    import dataclasses
+
+    return dataclasses.replace(
+        topo, overset=_table_on_cpu(topo.overset),
+        blocks=tuple(dataclasses.replace(
+            bs, por=tuple(p.double().cpu() for p in bs.por),
+            iblank=None if bs.iblank is None else bs.iblank.double().cpu())
+            for bs in topo.blocks))
+
+
+def check_overset_fill(solver):
+    """The card's ``fill_halos`` against the same fill in f64 on the CPU,
+    from the same interior state and geometry (the card's f32 metrics and
+    table weights, widened), at every overset receiver; per channel, of
+    the channel's largest entry. Returns the largest."""
+    from adflow_torch.physics.residual import fill_halos
+
+    wf = [w.double().cpu() for w in solver._filled_w()]
+    m64 = [type(m)(*(None if t is None else t.double().cpu() for t in m))
+           for m in solver.metrics_list]
+    want = fill_halos([w.double().cpu() for w in solver.w_list], m64,
+                      _topology_on_cpu(solver.topo), solver.ref,
+                      solver.winf.double().cpu())
+    worst, n = 0.0, 0
+    for g in solver.topo.overset.groups:
+        idx = g.dst_flat.cpu()
+        a = want[g.dst_block].reshape(-1, want[g.dst_block].shape[-1])[idx]
+        b = wf[g.dst_block].reshape(-1, wf[g.dst_block].shape[-1])[idx]
+        scale = want[g.dst_block].abs().amax(dim=(0, 1, 2))
+        worst = max(worst, float(((a - b).abs().amax(dim=0)
+                                  / scale).max()))
+        n += len(idx)
+    print(f"  overset fill, card (f32) vs CPU (f64) at {n} receivers: "
+          f"{worst:.3e} of the channel's largest entry (tolerance "
+          f"{BC_RTOL:g})")
+    assert worst < BC_RTOL, worst
+    return worst
+
+
+def check_warp(solver, x_before, pts0, new_pts):
+    """The card's warped f32 nodes against an f64 warp on the CPU of
+    WARP_SAMPLE seeded nodes a block, from the same f32 start coordinates
+    and surface: the largest error beyond half an f32 ulp of the coordinate,
+    of the displacement scale."""
+    from adflow_torch.geom.warp import warp_mesh
+
+    disp = new_pts - pts0
+    scale = float(np.abs(disp).max())
+    rng = np.random.default_rng(0)
+    worst, raw = 0.0, 0.0
+    for x0, x1 in zip(x_before, solver.x_list):
+        flat0 = x0.reshape(-1, 3).double().cpu()
+        pick = torch.as_tensor(rng.choice(flat0.shape[0], min(
+            WARP_SAMPLE, flat0.shape[0]), replace=False))
+        want = warp_mesh(solver.mesh, [flat0[pick]], pts0, disp)[0]
+        got = x1.reshape(-1, 3)[pick.to(x1.device)].double().cpu()
+        err = (got - want).abs()
+        half_ulp = 2.0 ** -24 * want.abs()
+        raw = max(raw, float(err.max()) / scale)
+        worst = max(worst, float((err - half_ulp).clamp(min=0).max())
+                    / scale)
+    print(f"  warp, card (f32) vs CPU (f64) on {WARP_SAMPLE} nodes a block: "
+          f"{raw:.3e} of the displacement scale {scale:.3e}, {worst:.3e} "
+          f"beyond half an f32 ulp of the coordinate (tolerance "
+          f"{WARP_RTOL:g})")
+    assert worst < WARP_RTOL, worst
+    return worst
+
+
+def check_quick_walldist(solver):
+    """The quick wall-distance update against a full search on the card,
+    at the warped coordinates: the quick distance projects onto each cell's
+    stored quad, so it is never below the nearest one's. Returns the
+    largest relative excess and the share of cells where it exceeds 1e-6."""
+    from adflow_torch.geom.walldist import compute_wall_distances
+
+    mesh = solver._warped_mesh()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    full = compute_wall_distances(mesh, solver.x_list, cutoff=float(
+        solver.options["wallDistCutoff"]))
+    torch.cuda.synchronize()
+    t_full = time.perf_counter() - t0
+    worst, below, moved, n = 0.0, 0.0, 0, 0
+    for ex, d in zip(solver.extras_list, full):
+        q = ex["walldist"][1:-1, 1:-1, 1:-1].double()
+        f = d[1:-1, 1:-1, 1:-1].double()
+        worst = max(worst, float(((q - f) / f).max()))
+        below = min(below, float((q - f).min()))
+        moved += int((q - f > 1e-6 * f).sum())
+        n += q.numel()
+    print(f"  quick wall distance vs a full search on the card ({t_full:.3f} "
+          f"s): largest relative excess {worst:.3e}, {moved} of {n} cells "
+          f"above 1e-6 (a nearer quad after the warp); lowest difference "
+          f"{below:.3e} chords (tolerance -{WALLDIST_ATOL:g}: the quick "
+          f"distance is never below the full one beyond f32 rounding)")
+    assert np.isfinite(worst) and below > -WALLDIST_ATOL, below
+    return worst, moved / n
+
+
+def overset_path():
+    """[26]: the overset RANS-SA path at full width through ADFLOW; returns
+    the K1 launches of its solve and adjoint."""
+    from adflow_torch.api.solver import ADFLOW
+    from adflow_torch.core.refstate import AeroProblem
+    from adflow_torch.geom import walldist, warp
+    from adflow_torch.ops import cuda_rans
+    from adflow_torch.overset import apply_overset
+    from adflow_torch.physics import residual
+    from adflow_torch.physics.residual import fill_halos
+
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    mesh = overset_airfoil_mesh(**OVS_NEAR, **OVS_BG)
+    nb = len(mesh.blocks)
+    print(f"  blocks {[b.dims for b in mesh.blocks]}, {mesh.n_cells} cells; "
+          f"mesh generation {time.perf_counter() - t0:.3f} s")
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    for b in mesh.blocks:
+        print(f"  K1 tile plan at {'x'.join(map(str, b.dims))}: "
+              f"{cuda_rans.k1_tile_plan(*b.dims, n_sm=n_sm)}")
+    opts = dict(solver_options(1), useANKSolver=True)
+    zero_launches()
+    with CallTimes(residual, "build_overset") as asm:
+        t0 = time.perf_counter()
+        solver = ADFLOW(options=opts, mesh=mesh)
+        ap = AeroProblem(**OVS_AP)
+        solver.setAeroProblem(ap)
+        torch.cuda.synchronize()
+        t_ctor = time.perf_counter() - t0
+    print(f"  construction {t_ctor:.3f} s, of which the overset assembly "
+          f"{asm.seconds[0]:.3f} s (host); K1, K2 launches {launches()}")
+    assert launches() == (0, 0)
+    rep = solver.checkOverset()
+    for g in solver.topo.overset.groups:
+        print(f"    group {g.dst_block}<-{g.src_block} priority "
+              f"{g.priority}: {len(g.dst_flat)} receivers")
+
+    k1_total = 0
+    steps = []
+    for i in range(OVS_STEPS[0]):
+        zero_launches()
+        t0 = time.perf_counter()
+        if i == OVS_STEPS[0] - 1:
+            profile_device(lambda: solver(ap), "1 ANK step (overset RANS-SA)",
+                           "rans_residual_kernel", host_ops=False)
+        else:
+            solver(ap)
+        torch.cuda.synchronize()
+        k1, k2 = launches()
+        info = solver.solve_info
+        expected = nb * (2 + sum(r.res_evals for r in info.steps))
+        print_steps(info, "evaluations")
+        print(f"  call {i + 1}: {time.perf_counter() - t0:.3f} s; K1 "
+              f"launches {k1} (expected {expected}: {nb} blocks x (2 for "
+              f"the driver's norms + the step's evaluations)), K2 {k2}")
+        assert np.all(np.isfinite(info.history)) and len(info.steps) == 1
+        assert (k1, k2) == (expected, 0), (k1, k2, expected)
+        k1_total += k1
+        steps.append(info.steps[0].seconds)
+
+    zero_launches()
+    funcs = solver.evalFunctions(ap, {})
+    print(f"  cl {funcs['ovs_cl']!r}, cd {funcs['ovs_cd']!r}; K1, K2 "
+          f"launches {launches()}")
+    assert np.isfinite(funcs["ovs_cl"]) and np.isfinite(funcs["ovs_cd"])
+
+    tensors, consts = main_path_operands(solver, block=1)
+    _, _, flux_rel = compare_post_solve(tensors, consts)
+    assert flux_rel < FLUX_RTOL, flux_rel
+    del tensors
+    check_overset_fill(solver)
+    w = solver.w_list
+    fill_ms = time_ms(lambda: fill_halos(w, solver.metrics_list, solver.topo,
+                                         solver.ref, solver.winf), reps=10)
+    wf = solver._filled_w()
+    ovs_ms = time_ms(lambda: apply_overset(wf, solver.topo.overset),
+                     reps=10)
+    print(f"  fill_halos {fill_ms:.3f} ms, of which the overset "
+          f"interpolation alone {ovs_ms:.3f} ms ({ovs_ms / fill_ms:.3f}; "
+          f"CUDA events, median of 10)")
+    del wf
+
+    pts0 = solver.getSurfaceCoordinates()
+    new_pts = bumped(pts0, OVS_BUMP)
+    x_before = [x.clone() for x in solver.x_list]
+    with CallTimes(warp, "warp_mesh") as t_warp, \
+            CallTimes(residual, "build_overset") as t_asm, \
+            CallTimes(walldist, "update_wall_distances") as t_wd:
+        solver.setSurfaceCoordinates(new_pts)
+        t0 = time.perf_counter()
+        solver.updateGeometryInfo()
+        torch.cuda.synchronize()
+        t_geo = time.perf_counter() - t0
+    print(f"  updateGeometryInfo {t_geo:.3f} s: the warp "
+          f"{t_warp.seconds[0]:.3f} s, the re-assembly {t_asm.seconds[0]:.3f}"
+          f" s (host), the quick wall distance {t_wd.seconds[0]:.3f} s; "
+          f"peak device memory so far "
+          f"{torch.cuda.max_memory_allocated() / 2 ** 30:.3f} GiB")
+    check_warp(solver, x_before, pts0, new_pts)
+    del x_before
+    check_quick_walldist(solver)
+    t0 = time.perf_counter()
+    quality = solver.checkMeshQuality()
+    print(f"  checkMeshQuality {time.perf_counter() - t0:.3f} s: ok "
+          f"{quality['ok']}, min volume {quality['min_volume']:.3e}, "
+          f"max skewness {quality['max_skewness']:.3f}, max aspect ratio "
+          f"{quality['max_aspect_ratio']:.3e}")
+    assert quality["ok"]
+    rep2 = solver.checkOverset()
+    assert rep2["hole"] > 0 and rep2["fringe"] > 0
+
+    for _ in range(OVS_STEPS[1]):
+        zero_launches()
+        t0 = time.perf_counter()
+        solver(ap)
+        torch.cuda.synchronize()
+        k1, k2 = launches()
+        info = solver.solve_info
+        expected = nb * (2 + sum(r.res_evals for r in info.steps))
+        print_steps(info, "evaluations")
+        print(f"  after the shape change: {time.perf_counter() - t0:.3f} s; "
+              f"K1 launches {k1} (expected {expected}), K2 {k2}")
+        assert np.all(np.isfinite(info.history))
+        assert (k1, k2) == (expected, 0), (k1, k2, expected)
+        k1_total += k1
+    funcs = solver.evalFunctions(ap, {})
+    print(f"  cl {funcs['ovs_cl']!r}, cd {funcs['ovs_cd']!r}")
+    assert np.isfinite(funcs["ovs_cl"]) and np.isfinite(funcs["ovs_cd"])
+
+    solver.setOption("adjointSubspaceSize", OVS_ADJ_ITERS)
+    solver.setOption("adjointMaxIter", OVS_ADJ_ITERS)
+    zero_launches()
+    t0 = time.perf_counter()
+    sens = solver.evalFunctionsSens(ap, {}, ["cl"])["ovs_cl"]
+    torch.cuda.synchronize()
+    t_adj = time.perf_counter() - t0
+    k1, k2 = launches()
+    info = solver.adjoint_info
+    xv = sens["xv"]
+    print(f"  evalFunctionsSens(cl), {OVS_ADJ_ITERS} GMRES iterations: "
+          f"{t_adj:.3f} s, relative residual {info.res_norm / info.b_norm:.3e};"
+          f" d/dalpha {sens['alpha']!r}, d/dmach {sens['mach']!r}, |d/dxv| "
+          f"{float(np.linalg.norm(xv))!r}; K1 launches {k1} (expected "
+          f"{2 * nb}: one forward for the solve's vjp and one for the vjp in "
+          f"x, each block), K2 {k2}")
+    assert xv.shape == (sum(x.numel() for x in solver.x_list),)
+    assert np.all(np.isfinite(xv)) and np.isfinite(sens["alpha"])
+    assert (k1, k2) == (2 * nb, 0), (k1, k2)
+    k1_total += k1
+    print(f"  ms per ANK step {[round(t * 1e3, 1) for t in steps]}; peak "
+          f"device memory {torch.cuda.max_memory_allocated() / 2 ** 30:.3f} "
+          f"GiB")
+    del solver
+    return k1_total
+
+
+def residual_scale(solver, block, r):
+    """Each channel's scale for a residual ``r`` of ``block``: the largest
+    mean-flow face flux for the mean-flow rows (one number, as the CPU
+    tests take it), and for a turbulence row the larger of its row-scaled
+    advective flux and its largest entry in ``r`` (``small_residual``)."""
+    from adflow_torch.physics.thermo import pressure
+
+    w = solver._filled_w()[block]
+    m = solver.metrics_list[block]
+    scale = flux_scale(w, pressure(w), (m.siE, m.sjE, m.skE),
+                       turb_scales=solver.cfg.turb_scales).to(r)
+    return torch.cat([scale[:5].max().expand(5), torch.maximum(
+        scale[5:], r.abs().amax(dim=(0, 1, 2))[5:])])
+
+
+def small_overset_residual(label, mesh_fn, ap, options, want, cut=None):
+    """``residual_list`` of an overset mesh at the seeded perturbed free
+    stream on the card (f32) and the CPU (f64): the mean-flow rows of every
+    block to the CPU's, every row to the plain f32 version on the CPU on
+    the card's own inputs, of the flux scale (as ``small_residual``), and
+    the launches ``want``. Returns the card's solver, the CPU's, w0 and the
+    launches."""
+    from adflow_torch.physics.residual import block_residual
+
+    kw = {} if cut is None else {"cutCallback": cut}
+    cpu, w0 = small_state("cpu", mesh_fn(), ap, options, **kw)
+    card, _ = small_state("cuda:0", mesh_fn(), ap, options, w0, **kw)
+    r64 = cpu.getResidual(cpu.curAP)
+    zero_launches()
+    rg = card.getResidual(card.curAP)
+    torch.cuda.synchronize()
+    got = launches()
+    wf = card._filled_w()
+    worst64 = worst32 = 0.0
+    for i, bs in enumerate(card.topo.blocks):
+        args = _on_cpu((wf[i], card.metrics_list[i], card.cfg, card.ref,
+                        card.extras_list[i] if card.extras_list else None,
+                        bs.por, bs.iblank))
+        r32 = block_residual(*args[:5], por=args[5]) * args[6]
+        scale = residual_scale(cpu, i, r32.double())
+        g = rg[i].double().cpu()
+        worst64 = max(worst64, float(((g - r64[i]).abs().amax(
+            dim=(0, 1, 2)) / scale)[:5].max()))
+        worst32 = max(worst32, float(((g - r32.double()).abs().amax(
+            dim=(0, 1, 2)) / scale).max()))
+    print(f"  {label}: residual of {len(rg)} blocks, mean flow card vs CPU "
+          f"f64 {worst64:.2e}, every row card vs plain f32 {worst32:.2e} of "
+          f"the flux scale (tolerance {FLUX_RTOL:g}); K1, K2 launches {got} "
+          f"(expected {want})")
+    assert all(bool(torch.isfinite(r).all()) for r in rg)
+    assert worst64 < FLUX_RTOL and worst32 < FLUX_RTOL
+    assert got == want, (label, got)
+    return card, cpu, w0, got
+
+
+def small_overset_step(label, card, cpu, w0, kernel):
+    """One ANK step of each from w0: the histories within ANK_SOLVE_RTOL
+    and the launches exact (``kernel`` 0 for K1, 1 for K2; a launch per
+    block an evaluation). Returns the launches."""
+    nb = len(card.mesh.blocks)
+    for s in (cpu, card):
+        s.setOption("nCycles", 1)
+        s.setStates(w0)
+    cpu(cpu.curAP)
+    zero_launches()
+    card(card.curAP)
+    torch.cuda.synchronize()
+    got = launches()
+    ic, ig = cpu.solve_info, card.solve_info
+    n = nb * (2 + sum(r.res_evals for r in ig.steps))
+    want = (n, 0) if kernel == 0 else (0, n)
+    h_rel = hist_rel(ig.history[:, 0], ic.history[:, 0])
+    print(f"  {label}: 1 ANK step, history card vs CPU {h_rel:.3e} "
+          f"(tolerance {ANK_SOLVE_RTOL:g}), Krylov iterations "
+          f"{int(ig.steps[0].stats[4])} / {int(ic.steps[0].stats[4])}; "
+          f"K1, K2 launches {got} (expected {want})")
+    assert np.all(np.isfinite(ig.history)) and h_rel < ANK_SOLVE_RTOL
+    assert got == want, (label, got)
+    return got
+
+
+def small_overset_parity():
+    """[27]: the small overset and geometry cases, card (f32) against the
+    CPU (f64), exact launches. Returns the K1 and K2 launches."""
+    from adflow_torch.meshgen.analytic import channel_mesh, wing_omesh
+    from adflow_torch.overset.assembly import (
+        build_zipper_gaps, overlap_surface_weights)
+    from adflow_torch.physics.surface import (
+        build_wall_patches, cost_functions, integrate_forces)
+
+    k1 = k2 = 0
+    euler = euler_options(1)
+    # the box-in-box preserves the free stream exactly, so its free-stream
+    # residual (the driver's reference) is round-off: ANK from the start
+    card, cpu, w0, got = small_overset_residual(
+        "box-in-box Euler 12^3 + 14^3, explicit cut", box_in_box_mesh,
+        dict(OVS_SMALL_AP, name="bb"), dict(euler, ANKSwitchTol=1e30),
+        (0, 2), cut=box_cut)
+    k2 += got[1] + small_overset_step("box-in-box", card, cpu, w0, 1)[1]
+
+    def airfoil(viscous):
+        return lambda: overset_airfoil_mesh(
+            **OVS_SMALL_AIRFOIL, viscous=viscous, **OVS_SMALL_BG)
+
+    rans = dict(solver_options(1), useANKSolver=True)
+    card, cpu, w0, got = small_overset_residual(
+        "airfoil 40x10 in its background, RANS-SA", airfoil(True),
+        OVS_SMALL_AP, rans, (2, 0))
+    k1 += got[0] + small_overset_step("airfoil RANS", card, cpu, w0, 0)[0]
+
+    # the zipper: the two-patch mesh's forces with the overlap weights and
+    # the gap triangles, laminar, at the seeded perturbed free stream
+    lam = dict(euler, equationType="laminar NS")
+    worst = 0.0
+    res = {}
+    for dev in ("cpu", "cuda:0"):
+        s, w0 = small_state(dev, two_patch_mesh(), dict(
+            OVS_SMALL_AP, name="zp", alpha=0.0), lam,
+            None if dev == "cpu" else w0)
+        patches = build_wall_patches(s.mesh)
+        weights = overlap_surface_weights(s.mesh, patches)
+        gaps = build_zipper_gaps(s.mesh, patches, weights)
+        f = integrate_forces(s._filled_w(), s.x_list, s.metrics_list,
+                             patches, s.ref, s.cfg, patch_weights=weights,
+                             zipper=gaps)
+        res[dev] = {k: v.double().cpu() for k, v in f.items()}
+    # of the force scale p_inf times the wall's area (1; the moment arms
+    # are at most 1): at the perturbed free stream the net forces are sums
+    # of cancelling noise
+    scale = float(s.ref.p_inf)
+    for k in res["cpu"]:
+        a, b = res["cpu"][k], res["cuda:0"][k]
+        worst = max(worst, float((a - b).abs().max()) / scale)
+    print(f"  two-patch zipper mesh ({gaps.n_tris} gap triangles): forces, "
+          f"moments and centre-of-force sums card vs CPU {worst:.3e} of "
+          f"p_inf times the wall's area (tolerance {FLOW_RTOL:g})")
+    assert worst < FLOW_RTOL
+
+    # a user surface on the channel: the plane x = 1.5 across it
+    ny, nz = 6, 2
+    yy, zz = np.meshgrid(np.linspace(0.05, 0.95, ny + 1),
+                         np.linspace(0.02, 0.18, nz + 1), indexing="ij")
+    pts = np.stack([np.full(yy.shape, 1.5), yy, zz], -1).reshape(-1, 3)
+    base = (np.arange(ny)[:, None] * (nz + 1) + np.arange(nz)).reshape(-1)
+    conn = np.stack([base, base + nz + 1, base + nz + 2, base + 1], axis=1)
+    names = [f"plane_{f}" for f in SURF_FUNCS]
+    vals = {}
+    for dev in ("cpu", "cuda:0"):
+        s, w0 = small_state(dev, channel_mesh(*CHANNEL_DIMS), dict(
+            name="ch", mach=0.3, evalFuncs=names), euler,
+            None if dev == "cpu" else w0)
+        s.addIntegrationSurface((pts, conn), "plane")
+        vals[dev] = s.evalFunctions(s.curAP, {})
+    worst = max(abs(vals["cuda:0"][k] - vals["cpu"][k]) / abs(vals["cpu"][k])
+                for k in vals["cpu"])
+    print(f"  user surface on the channel, its six functions card vs CPU "
+          f"{worst:.3e} (tolerance {FLOW_RTOL:g}): "
+          f"{ {k[3:]: round(v, 6) for k, v in vals['cuda:0'].items()} }")
+    assert worst < FLOW_RTOL
+
+    # cperror2 with setTargetCp on the 16x8x8 Euler wing, and its adjoint
+    sens = {}
+    for dev in ("cpu", "cuda:0"):
+        s, w0 = small_state(dev, wing_omesh(*ADJ_DIMS), dict(
+            EULER, evalFuncs=["cperror2"]), dict(euler, **OVS_ADJ_OPTS),
+            None if dev == "cpu" else w0)
+        tgt = np.concatenate([
+            np.full(int(np.prod([p.face_sl[a].stop - p.face_sl[a].start
+                                 for a in range(3) if a != p.axis])), -0.1)
+            for p in s.wall_patches])
+        s.setTargetCp(tgt)
+        f = s.evalFunctions(s.curAP, {})["m6e_cperror2"]
+        zero_launches()
+        sens[dev] = (f, s.evalFunctionsSens(s.curAP, {}, ["cperror2"])
+                     ["m6e_cperror2"], launches())
+    (fc, tc, _), (fg, tg, lg) = sens["cpu"], sens["cuda:0"]
+    print(f"  cperror2 on the wing 16x8x8: {fg!r} vs {fc!r} (CPU), rel "
+          f"{abs(fg - fc) / abs(fc):.3e}; K1, K2 launches of its adjoint "
+          f"{lg} (expected (0, 2))")
+    assert abs(fg - fc) < FLOW_RTOL * abs(fc) and lg == (0, 2)
+    compare_totals("card vs CPU, cperror2", tc, tg, ("alpha", "mach"),
+                   ADJ_EULER_RTOL)
+    k2 += lg[1]
+
+    # evalFunctionsSens(cl) on the overset airfoil (Euler), with xv
+    sens = {}
+    for dev in ("cpu", "cuda:0"):
+        s, w0 = small_state(dev, airfoil(False)(), OVS_SMALL_AP,
+                            dict(euler, **OVS_ADJ_OPTS),
+                            None if dev == "cpu" else w0)
+        zero_launches()
+        sens[dev] = (s.evalFunctionsSens(s.curAP, {}, ["cl"])["ov_cl"],
+                     launches(), s.adjoint_info)
+    (tc, _, ic), (tg, lg, ig) = sens["cpu"], sens["cuda:0"]
+    print(f"  overset airfoil adjoint of cl: GMRES iterations card "
+          f"{ig.iters} / CPU {ic.iters}; K1, K2 launches {lg} (expected "
+          f"(0, 4): 2 blocks x 2)")
+    assert lg == (0, 4), lg
+    compare_totals("card vs CPU, overset cl", tc, tg, ("alpha", "mach"),
+                   ADJ_EULER_RTOL)
+    k2 += lg[1]
+
+    # a warp followed by the quick wall-distance update, RANS airfoil
+    out = {}
+    for dev in ("cpu", "cuda:0"):
+        s, w0 = small_state(dev, airfoil(True)(), OVS_SMALL_AP, rans,
+                            None if dev == "cpu" else w0)
+        pts0 = s.getSurfaceCoordinates()
+        s.setSurfaceCoordinates(bumped(pts0, 0.02))
+        s.updateGeometryInfo()
+        out[dev] = ([x.double().cpu() for x in s.x_list],
+                    [e["walldist"].double().cpu()[1:-1, 1:-1, 1:-1]
+                     for e in s.extras_list],
+                    [a.cpu() for a in s._walldist_assoc],
+                    s.checkOverset(printReport=False))
+    (xc, dc, ac, oc), (xg, dg, ag, og) = out["cpu"], out["cuda:0"]
+    # beyond an f32 ulp of the coordinate (the card's start coordinates
+    # are rounded to f32 too), of the bump's height
+    x_err = max(float(((a - b).abs() - 2.0 ** -23 * a.abs()).clamp(
+        min=0).max()) for a, b in zip(xc, xg)) / 0.02
+    same = [(a == b).reshape(d.shape) for a, b, d in zip(ac, ag, dc)]
+    d_err = max(float((a - b).abs()[m].max())
+                for a, b, m in zip(dc, dg, same))
+    n_diff = sum(int((~m).sum()) for m in same)
+    print(f"  warp + quick wall distance, RANS airfoil: nodes card vs CPU "
+          f"{x_err:.3e} of the bump beyond an f32 ulp (tolerance "
+          f"{WARP_RTOL:g}); wall distance {d_err:.3e} chords where both "
+          f"chose the same quad (tolerance {WALLDIST_ATOL:g}; {n_diff} cells "
+          f"chose another); overset after the warp card {og} vs CPU {oc}")
+    assert x_err < WARP_RTOL and d_err < WALLDIST_ATOL
+    # the re-assembly runs on f32-rounded coordinates on the card's side:
+    # a cell at a threshold of the hole cut may fall either way
+    assert og["groups"] == oc["groups"] and all(
+        abs(og[k] - oc[k]) <= 0.01 * oc["n_cells"]
+        for k in ("compute", "fringe", "hole", "orphans")), (og, oc)
+    return k1, k2
+
+
 def solver_slice(phase, scalar_pc_ms):
     """[22]-[25]; returns the K1 and K2 launches of their main paths, by
     path."""
@@ -2279,6 +2959,19 @@ def main() -> int:
           "sources, the grid-motion adjoint")
     k1_phys, k2_phys = small_physics_parity()
     k1_new, k2_new = solver_slice(phase, scalar_pc_ms)
+    phase("[26] overset at full width: the viscous NACA 0012 O-mesh at "
+          f"{'x'.join(map(str, (OVS_NEAR['ni'], OVS_NEAR['nj'], OVS_NEAR['nk'])))}"
+          " in its generated background, RANS-SA: ANK steps, the shape "
+          "change (warp, re-assembly, quick wall distance), the adjoint")
+    k1_ovs = overset_path()
+    phase("[27] small cases, card against CPU: box-in-box with a cut, the "
+          "airfoil in its background, the zipper, a user surface, cperror2, "
+          "the overset adjoint, a warp with the quick wall distance")
+    k1_ovs_small, k2_ovs_small = small_overset_parity()
+    k1_new["overset_rans_airfoil_256x64x64_in_background"] = k1_ovs
+    k1_new["overset_small_cases"] = k1_ovs_small
+    k2_new["overset_rans_airfoil_256x64x64_in_background"] = 0
+    k2_new["overset_small_cases"] = k2_ovs_small
     phase()
     print(f"total wall time {time.perf_counter() - t_start:.1f} s")
 

@@ -13,9 +13,9 @@ on the cases of tests/torch_pairs.py at their seeded perturbed state.
 - the transposed multigrid PC (``_transposed_amg_pc``,
   adjointGlobalPreconditioner='multigrid') against the JAX package's to
   1e-10;
-- the parts not ported raise ``NotImplementedError`` naming their item;
-  the adjoint's functions are kept across aero problems, as the JAX
-  package keeps them.
+- the adjoint's functions with a user surface and cp targets (the
+  gradients of their functions to 1e-10), and kept across aero problems,
+  as the JAX package keeps them.
 
 The solve itself is in test_torch_adjoint_solve.py (Euler wing),
 test_torch_adjoint_rans.py and test_torch_adjoint_frozen.py (RANS plate).
@@ -121,12 +121,32 @@ def test_jacobian_vector_products_are_transposes(pair):
     assert abs(fdot[name] - (fw @ wd + fx @ xd)) < TOL * abs(fdot[name])
 
 
-@pytest.mark.parametrize("what", ["user surfaces"])
-def test_unported_adjoint_parts_raise(pair, what):
-    _, _, ts = pair
-    # the port never holds one, so the adjoint's functions take none
-    with pytest.raises(NotImplementedError, match="item 11"):
-        ts.addUserSurface("surface")
+def test_user_surface_and_cp_target_adjoint_match_jax(pair):
+    """The adjoint's functions take the user integration surfaces and the
+    cp targets: the gradients in w, x and the design variables of a user
+    surface's mass flow and total pressure (the wing, a plane across its
+    wake) and of cperror2, to 1e-10. The plate, one cell thick, holds no
+    user surface in either package: the association's padded cell centres
+    need two cells along each axis (``_padded_centers``)."""
+    from tests.torch_pairs import (
+        add_planes, check_function_gradients, plane, wall_targets)
+
+    case, js, ts = pair
+    names = []
+    if case == "euler_wing":
+        names = add_planes(js, ts, case)[:2]
+    else:
+        for s in (js, ts):
+            with pytest.raises(IndexError):
+                s.addIntegrationSurface(
+                    plane((0.05, 0.01), (0.45, 0.04), 0.5), "plane")
+    tgt = wall_targets(ts)
+    for s in (js, ts):
+        s.setTargetCp(tgt)
+        s._afns = None
+    check_function_gradients(js, ts, names + ["cperror2"], jit=True)
+    for s in (js, ts):
+        s._user_surfaces, s._cp_targets, s._afns = [], None, None
 
 
 def test_transposed_amg_pc_matches_jax(pair):

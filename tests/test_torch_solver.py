@@ -9,7 +9,7 @@ caller names a device, and none of its modules imports JAX or the JAX
 package. Each physics option and an actuator region run through
 ``ADFLOW``, and so do the solver branches that ROADMAP.md item 10 ported
 (the multigrid ANK preconditioner, the unsteady mode, multigrid), against
-the JAX package; what still raises names its ROADMAP.md item (11-13).
+the JAX package; what still raises names its ROADMAP.md item (12, 13).
 """
 
 import subprocess
@@ -186,6 +186,7 @@ def test_ported_branches_match_jax(branch, opts):
 
 @pytest.mark.parametrize("option,value,item", [
     ("meshDevices", 2, "12"),
+    ("restartFile", "restart.cgns", "13"),
 ])
 def test_unported_options_raise(option, value, item):
     with pytest.raises(NotImplementedError, match=f"item {item}"):

@@ -313,12 +313,16 @@ def jitted_sens_pair(case, func, **options):
     (test_converged_rans_adjoint_matches_jax), the jitted reference about
     one. The JAX solver's psi cache and ``adjointFailed`` are set
     as its evalFunctionsSens sets them."""
+    return jitted_sens(*adjoint_pair(case, **options), func)
+
+
+def jitted_sens(js, ts, func):
+    """``jitted_sens_pair`` of two prepared solvers."""
     import jax
 
     from adflow_tpu.adjoint.api import solve_adjoint_system
     from adflow_tpu.core.refstate import R_GAS
 
-    js, ts = adjoint_pair(case, **options)
     fns = js._adjoint_fns()
     js._newton_fns()
     opt = js.options
@@ -415,3 +419,184 @@ def check_function_gradients(js, ts, funcs, jit=False):
         assert rel(want[1], got[1].numpy()) < VJP_TOL, name
         for k in want[2]:
             assert rel(want[2][k], got[2][k].numpy()) < VJP_TOL, (name, k)
+
+
+# -- overset meshes of both packages ----------------------------------------
+
+def _pkg(package, module):
+    import importlib
+    return importlib.import_module(f"{package}.{module}")
+
+
+def box_in_box(package, n_bg=16, n_in=20):
+    """tests/test_overset.py's mesh in ``package`` ('adflow_tpu' or
+    'adflow_torch'): the far-field box [0,1]^3 and an inner box
+    [0.25,0.75]^3 with OVERSET faces."""
+    m = _pkg(package, "core.mesh")
+    bg = _pkg(package, "meshgen.analytic").cube_mesh(n=n_bg).blocks[0]
+    xs = [np.linspace(0.25, 0.75, n_in + 1)] * 3
+    x = np.stack(np.meshgrid(*xs, indexing="ij"), axis=-1)
+    inner = m.Block(name="inner", x=x, bcs=[
+        m.BCSubface(face=f, bc=m.BCType.OVERSET, family="ovs")
+        for f in m.Face])
+    return m.MultiBlockMesh(blocks=[bg, inner], name="boxbox")
+
+
+def box_cut(bi, centers):
+    """tests/test_overset.py's explicit cut: a hole in the background under
+    the inner box's core."""
+    if bi != 0:
+        return np.zeros(len(centers), bool)
+    return np.max(np.abs(centers - 0.5), axis=1) < 0.1
+
+
+def overset_airfoil(package, ni, nj, nk=2, radius=1.5, viscous=False):
+    """The NACA 0012 O-mesh with its JMAX face OVERSET (the receiver)."""
+    import dataclasses
+
+    m = _pkg(package, "core.mesh")
+    near = _pkg(package, "meshgen.analytic").naca0012_omesh(
+        ni=ni, nj=nj, radius=radius, nk=nk, viscous=viscous).blocks[0]
+    bcs = [(dataclasses.replace(sf, bc=m.BCType.OVERSET, family="ovs")
+            if sf.face is m.Face.JMAX else sf) for sf in near.bcs]
+    return m.MultiBlockMesh([dataclasses.replace(near, bcs=bcs)],
+                            name="near")
+
+
+def airfoil_in_box(package, ni=64, nj=16, n_bg=40, radius=1.5):
+    """tests/test_overset.py's airfoil in a Cartesian background block
+    (far field around, symmetry planes in z)."""
+    m = _pkg(package, "core.mesh")
+    near = overset_airfoil(package, ni, nj, radius=radius).blocks[0]
+    xs = np.linspace(-2.0, 3.0, n_bg + 1)
+    ys = np.linspace(-2.0, 2.0, n_bg + 1)
+    zs = near.x[0, 0, :, 2]
+    x = np.zeros((n_bg + 1, n_bg + 1, len(zs), 3))
+    x[..., 0] = xs[:, None, None]
+    x[..., 1] = ys[None, :, None]
+    x[..., 2] = zs[None, None, :]
+    F, B = m.Face, m.BCType
+    bg = m.Block(name="bg", x=x, bcs=[
+        m.BCSubface(F.IMIN, B.FARFIELD, family="far"),
+        m.BCSubface(F.IMAX, B.FARFIELD, family="far"),
+        m.BCSubface(F.JMIN, B.FARFIELD, family="far"),
+        m.BCSubface(F.JMAX, B.FARFIELD, family="far"),
+        m.BCSubface(F.KMIN, B.SYMMETRY, family="sym"),
+        m.BCSubface(F.KMAX, B.SYMMETRY, family="sym")])
+    return m.MultiBlockMesh(blocks=[near, bg], name="airfoil_box")
+
+
+def airfoil_background(package, ni=40, nj=10, radius=1.2, viscous=False,
+                       scale=4.0, far=6.0):
+    """tests/test_overset_warp.py's mesh: the 40x10 airfoil in its generated
+    background (``cartesian_background``, symmetry planes in z)."""
+    near = overset_airfoil(package, ni, nj, radius=radius, viscous=viscous)
+    return _pkg(package, "meshgen.cartmesh").cartesian_background(
+        near, scale=scale, far=far, sym_planes=("zlow", "zhigh"))
+
+
+OVERSET_MESHES = {
+    "box_in_box": (lambda p: box_in_box(p), box_cut),
+    "airfoil_in_box": (lambda p: airfoil_in_box(p), None),
+    "airfoil_background": (lambda p: airfoil_background(p), None),
+}
+
+
+def overset_solvers(mesh_fn, cut=None, ap=None, **options):
+    """(JAX solver, port solver) on ``mesh_fn(package)``'s mesh with the
+    cut callback ``cut``, float64 on the CPU, the aero problem ``ap`` (a
+    dict) set."""
+    opts = dict({"equationType": "euler"}, **QUIET, **options)
+    ap = ap or dict(name="ov", mach=0.5, alpha=2.0, evalFuncs=["cl", "cd"])
+    js = JaxADFLOW(options=opts, mesh=mesh_fn("adflow_tpu"),
+                   cutCallback=cut)
+    ts = ADFLOW(options=opts, mesh=mesh_fn("adflow_torch"), device="cpu",
+                cutCallback=cut)
+    js.setAeroProblem(JaxAP(**ap))
+    ts.setAeroProblem(AeroProblem(**ap))
+    return js, ts
+
+
+def overset_pair(mesh_fn, cut=None, ap=None, **options):
+    """``variant_pair``'s namespace for an overset mesh: both solvers, both
+    Newton functions, the seeded perturbed state set in both, the filled
+    block lists."""
+    import types
+
+    js, ts = overset_solvers(mesh_fn, cut, ap, **options)
+    jf = jax_newton.build_newton_fns(js.w_list, js.metrics_list, js.topo,
+                                     js.cfg, js.ref, js.winf, js.extras_list)
+    tf = newton.build_newton_fns(ts.w_list, ts.metrics_list, ts.topo,
+                                 ts.cfg, ts.ref, ts.winf, ts.extras_list)
+    w0 = perturbed(jf.packer.pack_w(js.w_list), jf.packer.nw)
+    js.setStates(w0)
+    ts.setStates(w0)
+    return types.SimpleNamespace(js=js, ts=ts, jf=jf, tf=tf, w0=w0,
+                                 wj=js._filled_w(), wt=ts._filled_w())
+
+
+def wall_box(package, name, x0, x1, nx, ny=8, nz=4):
+    """tests/test_zipper.py's box whose z-min face is a viscous wall over
+    [x0, x1] x [0, 1]."""
+    m = _pkg(package, "core.mesh")
+    x = np.stack(np.meshgrid(np.linspace(x0, x1, nx + 1),
+                             np.linspace(0.0, 1.0, ny + 1),
+                             np.linspace(0.0, 0.5, nz + 1), indexing="ij"),
+                 axis=-1)
+    bcs = [m.BCSubface(face=m.Face(f), bc=m.BCType.FARFIELD, family="far")
+           for f in (0, 1, 2, 3, 5)]
+    bcs.append(m.BCSubface(face=m.Face(4), bc=m.BCType.NS_WALL_ADIABATIC,
+                           family="wall"))
+    return m.Block(name=name, x=x, bcs=bcs)
+
+
+def two_patch_mesh(package, overlap=0.2, n1=24, n2=15):
+    """tests/test_zipper.py's two disconnected blocks (two clusters) whose
+    wall patches overlap in x by ``overlap``; ``overlap`` 0 and equal
+    widths: its touching patches."""
+    m = _pkg(package, "core.mesh")
+    if overlap == 0.0:
+        return m.MultiBlockMesh([wall_box(package, "a", 0.0, 0.5, 10),
+                                 wall_box(package, "b", 0.5, 1.0, 10)],
+                                name="touch")
+    return m.MultiBlockMesh([wall_box(package, "fine", 0.0, 0.6, n1),
+                             wall_box(package, "coarse", 0.6 - overlap, 1.0,
+                                      n2)], name="twopatch")
+
+
+def plane(lo, hi, x0, n=4):
+    """tests/test_user_surface.py's quad grid of the plane x = ``x0`` over
+    [lo[0], hi[0]] x [lo[1], hi[1]] in (y, z): (pts, conn)."""
+    y = np.linspace(lo[0], hi[0], n + 1)
+    z = np.linspace(lo[1], hi[1], n + 1)
+    Y, Z = np.meshgrid(y, z, indexing="ij")
+    pts = np.stack([np.full(Y.shape, x0), Y, Z], axis=-1).reshape(-1, 3)
+    ii, jj = np.meshgrid(np.arange(n), np.arange(n), indexing="ij")
+    base = (ii * (n + 1) + jj).reshape(-1)
+    return pts, np.stack([base, base + (n + 1), base + (n + 2), base + 1],
+                         axis=1)
+
+
+# a user integration surface inside each case's domain: a plane across the
+# wing's wake, one across the channel (the plate's one cell in z holds no
+# dual brick: the association skips such blocks, as the JAX package's does)
+PLANES = {"euler_wing": ((-1.0, 0.5), (1.0, 2.5), 2.0),
+          "channel": ((0.05, 0.02), (0.95, 0.18), 1.5)}
+SURF_FUNCS = ("mdot", "mavgptot", "mavgttot", "mavgps", "mavgmn", "area")
+
+
+def add_planes(js, ts, case, name="plane", n=4):
+    """The case's plane added to both solvers as the user surface
+    ``name``; returns its six function names."""
+    surf = plane(*PLANES[case], n=n)
+    js.addIntegrationSurface(surf, name)
+    ts.addIntegrationSurface(surf, name)
+    return [f"{name}_{f}" for f in SURF_FUNCS]
+
+
+def wall_targets(solver, seed=0):
+    """Seeded target Cp over the solver's wall faces, in patch order."""
+    n = sum(int(np.prod([p.face_sl[a].stop - p.face_sl[a].start
+                         for a in range(3) if a != p.axis]))
+            for p in solver.wall_patches)
+    return np.random.default_rng(seed).uniform(-0.5, 0.5, n)
