@@ -19,21 +19,32 @@ inverse design (``setTargetCp``) and the geometry interface
 (``setSurfaceCoordinates``/``updateGeometryInfo`` with the IDW warp, the
 overset re-assembly and the quick wall-distance update; ``getGrid``/
 ``setGrid``; ``checkMeshQuality``, ``checkOverset``) run as in the JAX
-package. The solver runs on ``cuda:0`` unless the caller passes another
+package. So do the files and the outer solves: a mesh file through
+``gridFile`` (io/meshio.py), solution files and restart, forces, BC data,
+the slice, lift, Tecplot and isosurface writers and the family and user
+functions (api/output.py); ``solveCL``, ``solveTargetFuncs``,
+``solveTrimCL``, ``solveSep``, ``solveErrorEstimate`` and
+``propagateUncertainty``; and run control, the SIGUSR1/SIGUSR2 handlers of
+a solve (utils/signals.py) and its profiler trace (``jaxProfileDir``, kept
+by name). The solver runs on ``cuda:0`` unless the caller passes another
 device (the tests pass ``device="cpu"``); it never falls back to the CPU on
-its own. What is not ported yet (several devices, I/O and the rest of the
-API) raises ``NotImplementedError`` naming its ROADMAP.md item.
+its own. Several devices (``meshDevices > 1``) raise
+``NotImplementedError`` naming their ROADMAP.md item.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import math
+import os
 import time
 from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
 
+from adflow_torch.api.output import OutputMixin
 from adflow_torch.core.mesh import MultiBlockMesh
 from adflow_torch.core.refstate import (
     GAMMA, AeroProblem, ReferenceState, make_reference_state)
@@ -124,7 +135,7 @@ class _IterMonitor:
         print(" ".join(cols))
 
 
-class ADFLOW:
+class ADFLOW(OutputMixin):
     """The solver with the reference's Python API surface, on PyTorch."""
 
     def __init__(self, options: Optional[dict] = None,
@@ -142,7 +153,8 @@ class ADFLOW:
         self._reject_unported_options()
 
         if mesh is None:
-            raise _todo("reading 'gridFile'", "13")
+            from adflow_torch.io.meshio import read_mesh
+            mesh = read_mesh(self.options["gridFile"])
         mesh.validate()
         self.mesh = mesh
         # overset assembly (reference preprocessingoverset -> oversetComm,
@@ -203,6 +215,10 @@ class ADFLOW:
         # (useApproxWallDistance, updateWallDistancesQuickly)
         self._user_surfaces = []      # addIntegrationSurface
         self._cp_targets = None       # setTargetCp
+        self._extra_funcs = {}        # addFunction, addUserFunction
+        self._lift_dists = []         # addLiftDistribution
+        self._slices = []             # addSlices
+        self._sol_counter: Dict[str, int] = {}   # writeSolution numbering
         self.extras_list = None
         self._walldist_assoc = None
         if self.cfg.rans:
@@ -224,8 +240,6 @@ class ADFLOW:
         opt = self.options
         if int(opt["meshDevices"]) > 1:
             raise _todo("meshDevices > 1", "12")
-        if opt["restartFile"]:
-            raise _todo("restart files", "13")
 
     def _overset_surfaces(self, mesh):
         """The overlap weights of the wall patches and, with
@@ -311,10 +325,15 @@ class ADFLOW:
             for m, x in zip(self._metrics_base, self.x_list)]
 
     def resetFlow(self, ap: Optional[AeroProblem] = None):
-        """Free-stream initialization (reference: initFlow,
-        initializeFlow.F90:345)."""
+        """Free-stream or restart-file initialization (reference: initFlow,
+        initializeFlow.F90:345; the restart read of variableReading.F90)."""
         if ap is not None and self.curAP is not ap:
             self.setAeroProblem(ap)
+        if self.options["restartFile"]:
+            self._load_restart()
+            self._fresh_state = False
+            self._state_winf = np.asarray(self.ref.winf())
+            return
         self.w_list = self._fresh()
         self._fresh_state = True
         self._state_winf = np.asarray(self.ref.winf())
@@ -384,8 +403,6 @@ class ADFLOW:
         self.setAeroProblem(ap)
         opt = self.options
         t0 = time.time()
-        if opt["jaxProfileDir"]:
-            raise _todo("the profiler hook 'jaxProfileDir'", "13")
 
         monitor = None
         if opt["printIterations"]:
@@ -403,19 +420,46 @@ class ADFLOW:
             self._solve_time_spectral(ap, opt, kwargs, t0, monitor)
             return
 
+        # SIGUSR1 writes the current iterate and goes on, SIGUSR2 writes it
+        # and stops (reference connect_signals.c:23-47, polled at
+        # solvers.F90:1174); jaxProfileDir traces the solve
+        from adflow_torch.utils.signals import SignalMonitor
+
+        def _sig_write(w_now):
+            # the solve's current iterate, not the pre-solve state
+            if w_now is not None:
+                self.w_list = list(w_now)
+            self.writeSolution(baseName=f"{ap.name}_sig")
+
+        with SignalMonitor(on_write=_sig_write) as sigmon, \
+                self._profiler(opt["jaxProfileDir"]):
+            info = self._solve_steady(opt, monitor, deadline, sigmon.check)
+        self._fresh_state = False
+        self.solve_info = info
+        ap.solveFailed = bool(info.failed)
+        ap.fatalFail = bool(info.failed)
+        if opt["printTiming"]:
+            print(f"  solve wall time: {time.time() - t0:.2f} s "
+                  f"({info.iterations} iterations, "
+                  f"R {info.total_r0:.3e} -> {info.total_r_final:.3e})")
+
+    def _solve_steady(self, opt, monitor, deadline, signal_check):
+        """The steady branch of ``__call__``: the full-multigrid start,
+        then the Newton driver, FAS multigrid or the RK/DADI smoother.
+        Sets the state and returns the SolveInfo."""
         self._fmg_start(opt)
         use_nk = bool(opt["useNKSolver"])
         use_ank = bool(opt["useANKSolver"])
         if use_nk or use_ank:
             from adflow_torch.solvers.newton import solve_newton_driver
-            self.w_list, info = solve_newton_driver(
+            w_list, info = solve_newton_driver(
                 self.w_list, self.metrics_list, self.topo, self.cfg,
                 self.ref, self.winf, opt, extras_list=self.extras_list,
                 monitor=monitor, deadline=deadline,
-                mixed_data=self._mixed_data())
+                signal_check=signal_check, mixed_data=self._mixed_data())
         elif str(opt["MGCycle"]).lower() not in ("sg", "none", ""):
             from adflow_torch.solvers.multigrid import solve_mg
-            self.w_list, info = solve_mg(
+            w_list, info = solve_mg(
                 self.w_list, self.mesh, self.x_list, self.topo, self.cfg,
                 self.ref, self.winf, mg_cycle=str(opt["MGCycle"]),
                 cfl=float(opt["CFL"]), n_cycles=int(opt["nCycles"]),
@@ -429,22 +473,36 @@ class ADFLOW:
                 deadline=deadline, vis2_coarse=float(opt["vis2Coarse"]),
                 coarse_disc=str(opt["coarseDiscretization"]))
         else:
-            self.w_list, info = steady.solve_rk(
+            w_list, info = steady.solve_rk(
                 self.w_list, self.metrics_list, self.topo, self.cfg,
                 self.ref, self.winf,
                 cfl=float(opt["CFL"]), n_cycles=int(opt["nCycles"]),
                 l2_conv=float(opt["L2Convergence"]),
                 l2_conv_rel=float(opt["L2ConvergenceRel"]),
                 extras_list=self.extras_list, monitor=monitor,
-                smoother=str(opt["smoother"]), deadline=deadline)
-        self._fresh_state = False
-        self.solve_info = info
-        ap.solveFailed = bool(info.failed)
-        ap.fatalFail = bool(info.failed)
-        if opt["printTiming"]:
-            print(f"  solve wall time: {time.time() - t0:.2f} s "
-                  f"({info.iterations} iterations, "
-                  f"R {info.total_r0:.3e} -> {info.total_r_final:.3e})")
+                smoother=str(opt["smoother"]), deadline=deadline,
+                signal_check=signal_check)
+        self.w_list = w_list
+        return info
+
+    @contextlib.contextmanager
+    def _profiler(self, trace_dir):
+        """``torch.profiler`` over the solve, its Chrome trace written into
+        ``trace_dir`` (the ``jaxProfileDir`` option, kept by name) as
+        ``<problem>_<pid>_<ns>.pt.trace.json``; nothing without a
+        directory."""
+        if not trace_dir:
+            yield
+            return
+        os.makedirs(str(trace_dir), exist_ok=True)
+        acts = [torch.profiler.ProfilerActivity.CPU]
+        if self.device.type == "cuda":
+            acts.append(torch.profiler.ProfilerActivity.CUDA)
+        with torch.profiler.profile(activities=acts) as prof:
+            yield
+        prof.export_chrome_trace(os.path.join(
+            str(trace_dir), f"{self.curAP.name}_{os.getpid()}_"
+            f"{time.time_ns()}.pt.trace.json"))
 
     def _solve_unsteady(self, ap, opt, kwargs, t0):
         """The time-accurate branch: BDF dual time or explicit RK4 from the
@@ -715,6 +773,8 @@ class ADFLOW:
             all_funcs.update(integrate_user_surface(wf, surf, self.ref))
         if getattr(self, "_ts_stab", None):
             all_funcs.update(self._ts_stab)
+        if self._extra_funcs:
+            all_funcs.update(self._eval_extra_funcs(all_funcs))
         for name in evalFuncs:
             key = name.lower()
             if key in all_funcs:
@@ -980,6 +1040,134 @@ class ADFLOW:
                     precond=lambda v: pc_apply_vec(data_list, nfns.packer,
                                                    v))
         return sol.x.cpu().numpy()
+
+    # ------------------------------------------------------------------
+    # outer solves (reference: solveCL:1847, solveTargetFuncs:2369,
+    # solveTrimCL:2236, solveSep:2516, solveErrorEstimate:5370,
+    # propagateUncertainty:1784); host arithmetic on the functions' floats
+    # ------------------------------------------------------------------
+    def solveCL(self, ap: AeroProblem, CLStar: float, alpha0: float = 0.0,
+                delta: float = 0.5, tol: float = 1e-4, maxIter: int = 20,
+                autoReset: bool = False):
+        """Secant iteration on alpha to a target CL; each iterate is a
+        solve from the free stream. Returns the last alpha."""
+        def cl_at(alpha):
+            ap.alpha = alpha
+            self.curAP = None          # rebuild the reference state
+            self._ap_states.pop(ap.name, None)
+            self(ap)
+            funcs = {}
+            self.evalFunctions(ap, funcs, evalFuncs=["cl"])
+            return funcs[f"{ap.name}_cl"]
+
+        a0, a1 = alpha0, alpha0 + delta
+        f0 = cl_at(a0) - CLStar
+        if abs(f0) < tol:
+            return a0
+        f1 = cl_at(a1) - CLStar
+        for _ in range(maxIter):
+            if abs(f1) < tol:
+                return a1
+            if f1 == f0:
+                break
+            a2 = a1 - f1 * (a1 - a0) / (f1 - f0)
+            a0, f0 = a1, f1
+            a1 = a2
+            f1 = cl_at(a1) - CLStar
+        return a1
+
+    def _func_at(self, ap, dvs: dict, names):
+        """Set the problem's scalars ``dvs``, solve and return the
+        functions ``names``. With infChangeCorrection the converged state
+        is kept and corrected to the new free stream (a warm start)."""
+        for k, v in dvs.items():
+            setattr(ap, k, float(v))
+        if (bool(self.options["infChangeCorrection"])
+                and self.w_list is not None and self.curAP is ap):
+            self._ap_states[ap.name] = self.w_list
+            self._ap_winfs[ap.name] = getattr(self, "_state_winf", None)
+        else:
+            self._ap_states.pop(ap.name, None)
+        self.curAP = None
+        self(ap)
+        funcs = {}
+        self.evalFunctions(ap, funcs, evalFuncs=list(names))
+        return [funcs[f"{ap.name}_{n}"] for n in names]
+
+    def solveTargetFuncs(self, ap: AeroProblem, targets: dict, dvs: dict,
+                         tol: float = 1e-4, maxIter: int = 12):
+        """Broyden (multi-variable secant) solve driving the functions
+        ``targets`` to their values by the problem's scalars ``dvs``; the
+        first Jacobian by forward differences. Returns the scalars."""
+        names = list(targets)
+        keys = list(dvs)
+        x = np.array([float(dvs[k]) for k in keys])
+        t = np.array([float(targets[n]) for n in names])
+        f = np.array(self._func_at(ap, dict(zip(keys, x)), names)) - t
+        J = np.zeros((len(names), len(keys)))
+        for j in range(len(keys)):
+            dx = max(1e-2, 1e-2 * abs(x[j]))
+            xp = x.copy()
+            xp[j] += dx
+            fp = np.array(self._func_at(ap, dict(zip(keys, xp)), names)) - t
+            J[:, j] = (fp - f) / dx
+        for _ in range(maxIter):
+            if np.abs(f).max() < tol:
+                break
+            step = np.linalg.lstsq(J, -f, rcond=None)[0]
+            x = x + step
+            fn = np.array(self._func_at(ap, dict(zip(keys, x)), names)) - t
+            denom = float(step @ step)
+            if denom > 0:              # Broyden's rank-1 update
+                J = J + np.outer(fn - f - J @ step, step) / denom
+            f = fn
+        return dict(zip(keys, x))
+
+    def solveTrimCL(self, ap: AeroProblem, CLStar: float,
+                    trimStar: float = 0.0, alpha0: float = 0.0,
+                    trimDV: str = "beta", trimFunc: str = "cmy",
+                    tol: float = 1e-4, maxIter: int = 12):
+        """The 2x2 trim solve: alpha to CL*, ``trimDV`` to the trim
+        function's target."""
+        ap.alpha = alpha0
+        return self.solveTargetFuncs(
+            ap, {"cl": CLStar, trimFunc: trimStar},
+            {"alpha": alpha0, trimDV: getattr(ap, trimDV, 0.0)},
+            tol=tol, maxIter=maxIter)
+
+    def solveSep(self, ap: AeroProblem, sepStar: float, alpha0: float = 0.0,
+                 delta: float = 0.5, tol: float = 1e-4, maxIter: int = 20):
+        """Alpha for a target separation sensor; returns alpha."""
+        out = self.solveTargetFuncs(ap, {"sepsensor": sepStar},
+                                    {"alpha": alpha0}, tol=tol,
+                                    maxIter=maxIter)
+        return out["alpha"]
+
+    def solveErrorEstimate(self, ap: AeroProblem, objective: str):
+        """The adjoint-weighted residual error estimate of one function,
+        -psi^T R(w), the dot product on the device in the state's dtype."""
+        self.setAeroProblem(ap)
+        psi = self.solveAdjoint(ap, objective.lower())
+        fns = self._adjoint_fns()
+        wvec, xvec = self._wx_vecs()
+        r = fns.res(wvec, xvec, self._ap_params(ap))
+        return -float(torch.dot(psi, r))
+
+    def propagateUncertainty(self, ap: AeroProblem, evalFuncs, uq: dict):
+        """First-order uncertainty propagation: sigma_f^2 = sum over the
+        problem's variables of (df/dv sigma_v)^2. Returns {name: sigma}."""
+        sens = {}
+        self.evalFunctionsSens(ap, sens, evalFuncs=list(evalFuncs))
+        out = {}
+        for name in evalFuncs:
+            key = f"{ap.name}_{name}"
+            var = 0.0
+            for dv, sigma in uq.items():
+                d = sens.get(key, {}).get(dv, 0.0)
+                var += (float(np.asarray(d).reshape(-1)[0]
+                              if np.ndim(d) else d) * sigma) ** 2
+            out[key] = math.sqrt(var)
+        return out
 
     # ------------------------------------------------------------------
     # inverse design, diagnostics and the geometry interface (reference:

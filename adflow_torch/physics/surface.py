@@ -9,7 +9,8 @@ planes. On overset meshes the wall faces over fringe and hole cells are
 masked out (``patch_iblank_mask``), overlapping patches carry the overlap
 weights and the zipper's gap triangles take their data face's pressure and
 traction (overset/assembly.py); ``cperror2`` is the cp-target inverse-design
-objective. The family-restricted functions are ROADMAP.md queue 1 item 13.
+objective. The family-restricted functions (``ADFLOW.addFunction``)
+integrate a subset of the patches (api/output.py).
 """
 
 from __future__ import annotations

@@ -514,7 +514,8 @@ class _LaggedPC:
 
 def solve_newton_driver(w_list, metrics_list, topo, cfg, ref, winf, opts,
                         extras_list=None, monitor=None,
-                        deadline: Optional[float] = None, mixed_data=None):
+                        deadline: Optional[float] = None,
+                        signal_check=None, mixed_data=None):
     """RK startup, ANK phase and NK phase; returns (w_list, SolveInfo).
 
     ``SolveInfo.steps`` holds a ``StepRecord`` per ANK/NK step. Besides the
@@ -526,7 +527,12 @@ def solve_newton_driver(w_list, metrics_list, topo, cfg, ref, winf, opts,
     the residual is 1e-2 of the free-stream one, and the NK phase becomes
     the f64 continuation: this driver in float64 from the f32 state (the
     metrics recomputed from f64 node coordinates, not upcast: f32 face
-    areas break the telescoping flux sum at ~1e-7 relative)."""
+    areas break the telescoping flux sum at ~1e-7 relative).
+
+    ``signal_check``: ``SignalMonitor.check`` (utils/signals.py), polled
+    before each ANK or NK step and by the startup smoother, with a provider
+    of the current iterate; 'stop' ends the solve. The poll reads a flag on
+    the host and adds no device sync."""
     fns = build_newton_fns(w_list, metrics_list, topo, cfg, ref, winf,
                            extras_list,
                            approx_sigma=float(
@@ -581,7 +587,8 @@ def solve_newton_driver(w_list, metrics_list, topo, cfg, ref, winf, opts,
             cfl=float(opts["CFL"]), n_cycles=n_cycles,
             l2_conv=rk_target / max(r0, 1e-30),
             extras_list=extras_list, monitor=monitor, total_r0=r0,
-            smoother=str(opts["smoother"]), deadline=deadline)
+            smoother=str(opts["smoother"]), deadline=deadline,
+            signal_check=signal_check)
         wvec = fns.packer.pack_w(w_list)
         hist.append(info.history)
         it += info.iterations
@@ -634,6 +641,9 @@ def solve_newton_driver(w_list, metrics_list, topo, cfg, ref, winf, opts,
                 rnorm = min(rnorm, best_r)
                 break
             if deadline is not None and time.time() >= deadline:
+                break
+            if signal_check is not None and signal_check(
+                    lambda: fns.packer.unpack_into(wvec, w_list)) == "stop":
                 break
             t0 = time.perf_counter()
             res = ank_step_for(rnorm)(wvec, cfl,
@@ -705,7 +715,7 @@ def solve_newton_driver(w_list, metrics_list, topo, cfg, ref, winf, opts,
         w_list64, info64 = solve_newton_driver(
             w_list64, metrics64, topo, cfg, ref, winf64,
             opts, extras_list=extras64, monitor=monitor, deadline=deadline,
-            mixed_data=None)
+            signal_check=signal_check, mixed_data=None)
         wvec = fns.packer.pack_w([w.to(wvec.dtype) for w in w_list64])
         it += info64.iterations
         rnorm = info64.total_r_final
@@ -724,6 +734,9 @@ def solve_newton_driver(w_list, metrics_list, topo, cfg, ref, winf, opts,
         lagged = _LaggedPC(fns, opts, "NK", "NKJacobianLag")
         while it < n_cycles and rnorm > target and not failed:
             if deadline is not None and time.time() >= deadline:
+                break
+            if signal_check is not None and signal_check(
+                    lambda: fns.packer.unpack_into(wvec, w_list)) == "stop":
                 break
             t0 = time.perf_counter()
             res = nk_step(wvec, eta, lagged.get(it, wvec, rnorm, 1e6))

@@ -38,7 +38,8 @@ def solve_rk(w_list, metrics_list, topo, cfg, ref, winf,
              monitor: Optional[Callable] = None,
              total_r0: Optional[float] = None,
              smoother: str = "runge-kutta",
-             deadline: Optional[float] = None):
+             deadline: Optional[float] = None,
+             signal_check: Optional[Callable] = None):
     """Explicit RK or DADI smoother to steady state. Returns (w_list,
     SolveInfo).
 
@@ -46,7 +47,9 @@ def solve_rk(w_list, metrics_list, topo, cfg, ref, winf,
     (diagonalized ADI, smoothers.dadi_iteration — reference DADISmoother,
     smoothers.F90:383).
     deadline: absolute time.time() after which the loop stops (reference:
-    timeLimit option checked in solvers.F90:1136)."""
+    timeLimit option checked in solvers.F90:1136).
+    signal_check: ``SignalMonitor.check`` (utils/signals.py), polled once a
+    chunk with a provider of the current iterate; 'stop' ends the loop."""
     dadi = smoother.lower().startswith("dadi")
     iteration = dadi_iteration if dadi else rk_iteration
     itertype = "DADI" if dadi else "RK"
@@ -74,6 +77,9 @@ def solve_rk(w_list, metrics_list, topo, cfg, ref, winf,
             break
         if rnow <= l2_conv * r0 or rnow <= l2_conv_rel:
             converged = True
+            break
+        if (signal_check is not None
+                and signal_check(lambda: w_list) == "stop"):
             break
         if deadline is not None and time.time() >= deadline:
             break

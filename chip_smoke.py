@@ -66,7 +66,7 @@ well). Then, each phase timed:
            the channel through K2, and ``evalFunctionsSens`` of cl in
            rotRate, rotCenter and machGrid on the Euler wing;
   [22]     the other solvers at full width: the full-multigrid start and
-           10 '3w' FAS cycles of the RK path's 256x64x64 RANS-SA wing
+           5 '3w' FAS cycles of the RK path's 256x64x64 RANS-SA wing
            (K1 exactly on the fine level's evaluations and the start's
            coarse solves, K2 never), one cycle profiled; then the DADI
            smoother on the same wing, one K1 launch an iteration;
@@ -99,7 +99,20 @@ well). Then, each phase timed:
            its background (RANS, K1: residual, 1 ANK step), the two-patch
            zipper mesh's forces, a user surface on the channel, cperror2 and
            its adjoint, the overset airfoil's adjoint of cl, a warp with the
-           quick wall-distance update.
+           quick wall-distance update;
+  [28]     the design point's files on [12]/[16]'s solved wing, no new
+           solve: the mesh through ``.npz`` and CGNS into ``gridFile``,
+           ``writeSolution`` (one K2 launch for the residual menu), a
+           restart bitwise equal to the written state, the nodal forces
+           against ``evalFunctions``, the force, slice and lift files, a
+           family function; each writer's and reader's seconds. Without
+           h5py the CGNS files are in the ADF flavour;
+  [29]     ``solveCL`` of [11]'s 16x8x8 wing on the card against a float64
+           run on the CPU (a process of its own, started with [28]),
+           ``solveErrorEstimate`` of cl at full width, a SIGUSR2 stop, the
+           ``jaxProfileDir`` trace, the MPhys adapter's dot-product
+           identity and the Tecplot volume and isosurface writers against
+           the CPU's. [28] and [29] run right after [16], on its solver.
 Any failed check raises, so the exit code is not 0. The last line is
 ``{"ok": true, "device": {...}}``; the line before it lists the kernels with
 their launches, errors and times (``ms`` by CUDA events around calls of the
@@ -235,7 +248,7 @@ PLATE_SMALL = dict(name="fp", mach=0.3, alpha=0.0, reynolds=1e6,
 # (whole chunks of 25). Then the DADI smoother on the same wing: nCycles
 # DADI_CYCLES, which runs one chunk of 25 iterations
 MG_OPTS = {"MGCycle": "3w", "MGStartLevel": -1}
-MG_CYCLES = 10
+MG_CYCLES = 5
 MG_COARSE_CYCLES = 50
 DADI_CYCLES = 5
 # [23], the AMG preconditioner on the main path's Euler wing: AMG_STEPS ANK
@@ -313,6 +326,26 @@ OVS_SMALL_AP = dict(name="ov", mach=0.5, alpha=2.0, reynolds=1e6,
 OVS_ADJ_OPTS = {"adjointSubspaceSize": 40, "adjointMaxIter": 40,
                 "adjointL2Convergence": 1e-14}
 SURF_FUNCS = ("mdot", "mavgptot", "mavgttot", "mavgps", "mavgmn", "area")
+# [28], the design point's files on [12]/[16]'s solved 1.05 M-cell Euler
+# wing, no new solve; the files go under build/ and are removed after
+DESIGN_DIR = "build/design_point"
+DESIGN_SLICES_Z = (0.5, 1.3, 2.2)   # off the k node planes (dz = 3/64)
+DESIGN_LIFT_SEGMENTS = 16
+FORCE_RTOL = 1e-5    # getForces' column sums against fx, fy, fz (f32)
+# [29], solveCL on [11]'s 16x8x8 Euler wing (default ANK through K2), card
+# (f32) against the CPU (f64, a process of its own) from the free stream at
+# CL_ALPHA0; each inner solve stops at CL_OPTS' L2Convergence, which f32
+# reaches on this wing in 7-10 steps (its ANK floors near 1.4e-4 of the
+# free-stream residual on the card, PERF.md section 6); at 1.5e-3
+# the f64 solves' cl is still 1.4e-4 from its converged value
+CL_OPTS = {"nCycles": 12, "L2Convergence": 2.5e-4}
+CL_STAR, CL_ALPHA0, CL_DELTA, CL_TOL, CL_MAX_ITER = 0.6, 2.0, 0.5, 1e-3, 8
+CL_ALPHA_ATOL = 2e-3   # degrees, the final alpha, card against CPU
+CL_ATOL = 1e-4         # each iterate's cl, card against CPU
+CL_REF_THREADS = 2
+MPHYS_DOT_RTOL = 1e-4  # the adapter's fwd/rev dot-product identity, f32
+ISO_AMP = 5e-2         # the writers' state: a 5% seeded perturbation
+ISO_SURFACES = {"mach": 0.9, "density": 1.02}
 
 # peak rates for the bound: (device-memory bytes/s, f32 FLOP/s outside the
 # tensor cores), NVIDIA data sheets; the SXM part is the default
@@ -2778,6 +2811,288 @@ def small_overset_parity():
     return k1, k2
 
 
+def _timed(times, label, fn):
+    """``fn()``, its wall time (synchronised) kept in ``times[label]``."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    times[label] = time.perf_counter() - t0
+    return out
+
+
+def _bc_table(mesh):
+    return [[(sf.face, sf.bc, sf.family, sf.rng) for sf in b.bcs]
+            + [(c.face, c.donor_block, c.transform, c.offset)
+               for c in b.conns] for b in mesh.blocks]
+
+
+def design_point_files(solver):
+    """[28]: the design point's files on the main path's solved wing,
+    ``solver`` reused with no new solve: the mesh through ``.npz`` and
+    CGNS and ``gridFile``, ``writeSolution`` (volume CGNS, surface and
+    lift files; one K2 launch a block for the residual menu), a restart
+    bitwise equal to the written state, the nodal forces against
+    ``evalFunctions``, the force and slice files and a family function.
+    Returns the K2 launches of the write."""
+    import importlib.util
+    import os
+    import shutil
+
+    from adflow_torch.api.solver import ADFLOW
+    from adflow_torch.core.refstate import AeroProblem
+    from adflow_torch.io.cgns import read_cgns
+    from adflow_torch.io.meshio import write_npz
+
+    if importlib.util.find_spec("h5py") is None:
+        print("  h5py is absent: the CGNS files are written and read in "
+              "the ADF flavour (adflow_torch/io/adf.py), which needs no "
+              "h5py")
+    else:
+        print("  h5py is present: the CGNS files are written in the HDF5 "
+              "flavour")
+    shutil.rmtree(DESIGN_DIR, ignore_errors=True)
+    os.makedirs(DESIGN_DIR)
+    torch.cuda.reset_peak_memory_stats()
+    times = {}
+    opts = euler_options(ANK_STEPS)
+    mesh = solver.mesh
+    path = os.path.join(DESIGN_DIR, "wing.npz")
+    _timed(times, "write_npz", lambda: write_npz(mesh, path))
+    from_npz = _timed(times, "ADFLOW(gridFile=.npz)",
+                      lambda: ADFLOW(options=dict(opts, gridFile=path)))
+    assert np.array_equal(from_npz.mesh.blocks[0].x, mesh.blocks[0].x)
+    assert torch.equal(from_npz.x_list[0], solver.x_list[0])
+    assert _bc_table(from_npz.mesh) == _bc_table(mesh)
+    del from_npz
+    path = os.path.join(DESIGN_DIR, "wing_mesh.cgns")
+    _timed(times, "writeMeshFile", lambda: solver.writeMeshFile(path))
+    from_cgns = _timed(times, "read_cgns", lambda: read_cgns(path))
+    assert np.array_equal(from_cgns.blocks[0].x, mesh.blocks[0].x)
+    assert _bc_table(from_cgns) == _bc_table(mesh)
+
+    solver.addLiftDistribution(DESIGN_LIFT_SEGMENTS, "z")
+    zero_launches()
+    _timed(times, "writeSolution", lambda: solver.writeSolution(
+        outputDir=DESIGN_DIR, baseName="m6e"))
+    k1, k2 = launches()
+    base = os.path.join(DESIGN_DIR, "m6e_000")
+    sizes = {ext: os.path.getsize(base + ext)
+             for ext in ("_vol.cgns", "_surf.dat", "_lift.dat")}
+    print(f"  writeSolution: {sizes} bytes; K2 launches {k2} (expected "
+          f"{len(mesh.blocks)}: one residual a block for 'resrho'), K1 {k1}")
+    assert k2 == len(mesh.blocks) and k1 == 0, (k2, k1)
+
+    def restart():
+        s = ADFLOW(options=dict(opts, restartFile=base + "_vol.cgns"),
+                   mesh=mesh)
+        s.setAeroProblem(AeroProblem(**EULER))
+        return s
+
+    restarted = _timed(times, "restart (ADFLOW + setAeroProblem)", restart)
+    same = torch.equal(restarted.getStates(), solver.getStates())
+    print(f"  restart from the volume file: state bitwise equal to the "
+          f"written one: {same} ({restarted.dtype})")
+    assert same and restarted.dtype == torch.float32
+    del restarted
+
+    ap = solver.curAP
+    forces = _timed(times, "getForces", solver.getForces)
+    funcs = solver.evalFunctions(ap, {}, ["fx", "fy", "fz", "cl"])
+    want = np.array([funcs[f"{ap.name}_{k}"] for k in ("fx", "fy", "fz")])
+    err = float(np.abs(forces.sum(axis=0) - want).max()
+                / np.abs(want).max())
+    print(f"  getForces: {forces.shape[0]} nodes, column sums "
+          f"{forces.sum(axis=0).tolist()} against fx, fy, fz "
+          f"{want.tolist()}: {err:.3e} of the largest (tolerance "
+          f"{FORCE_RTOL:g})")
+    assert err < FORCE_RTOL
+    _timed(times, "writeForceFile", lambda: solver.writeForceFile(
+        os.path.join(DESIGN_DIR, "forces.txt")))
+    solver.addSlices("z", list(DESIGN_SLICES_Z))
+    path = os.path.join(DESIGN_DIR, "slices.dat")
+    _timed(times, "writeSlicesFile", lambda: solver.writeSlicesFile(path))
+    zones = sum(line.startswith("ZONE") for line in open(path))
+    name = solver.addFunction("cl", "wall")
+    fam = solver.evalFunctions(ap, {}, ["cl", name])
+    print(f"  slices: {zones} zones; addFunction('cl', 'wall'): "
+          f"{fam[f'{ap.name}_{name}']!r} against cl "
+          f"{fam[f'{ap.name}_cl']!r}")
+    assert zones == len(DESIGN_SLICES_Z)
+    assert fam[f"{ap.name}_{name}"] == fam[f"{ap.name}_cl"]
+    for label, sec in times.items():
+        print(f"  {label}: {sec:.3f} s")
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    print(f"  peak device memory {peak:.3f} GiB")
+    shutil.rmtree(DESIGN_DIR)
+    return k2
+
+
+def cl_solve(device):
+    """[29]'s ``solveCL`` of the 16x8x8 Euler wing on ``device``: (alpha,
+    [(alpha, cl, steps, K2 launches expected, R/R0) a solve], seconds)."""
+    from adflow_torch.api.solver import ADFLOW
+    from adflow_torch.core.refstate import AeroProblem
+    from adflow_torch.meshgen.analytic import wing_omesh
+
+    solver = ADFLOW(options=dict(euler_options(CL_OPTS["nCycles"]),
+                                 **CL_OPTS),
+                    mesh=wing_omesh(ni=16, nj=8, nk=8), device=device)
+    ap = AeroProblem(**dict(EULER, alpha=CL_ALPHA0, evalFuncs=["cl"]))
+    log = []
+    evaluate = solver.evalFunctions
+
+    def record(ap_, funcs, evalFuncs=None, ignoreMissing=True):
+        out = evaluate(ap_, funcs, evalFuncs, ignoreMissing)
+        info = solver.solve_info
+        log.append((ap_.alpha, out[f"{ap_.name}_cl"], len(info.steps),
+                    2 + sum(r.res_evals for r in info.steps),
+                    info.total_r_final / info.total_r0))
+        return out
+
+    solver.evalFunctions = record
+    t0 = time.perf_counter()
+    alpha = solver.solveCL(ap, CL_STAR, alpha0=CL_ALPHA0, delta=CL_DELTA,
+                           tol=CL_TOL, maxIter=CL_MAX_ITER)
+    return alpha, log, time.perf_counter() - t0
+
+
+def cl_reference():
+    """[29]'s float64 ``solveCL`` on the CPU, in a process of its own."""
+    torch.set_num_threads(CL_REF_THREADS)
+    return cl_solve("cpu")
+
+
+def outer_solves(solver, cl_ref):
+    """[29]: ``solveCL`` of the small wing on the card against the CPU's
+    (``cl_ref``, the future of ``cl_reference``), ``solveErrorEstimate`` of
+    cl on the main path's wing (``solver``), a SIGUSR2 stop, the
+    ``jaxProfileDir`` trace, the MPhys adapter's dot-product identity and
+    the Tecplot volume and isosurface writers against the CPU's. Returns
+    the K2 launches: (error estimate, solveCL, the small cases)."""
+    import glob
+    import os
+    import signal
+
+    from adflow_torch.api import solver as api
+    from adflow_torch.core.refstate import AeroProblem
+    from adflow_torch.integrations.mphys import ImplicitCFDAdapter
+    from adflow_torch.meshgen.analytic import wing_omesh
+
+    os.makedirs(DESIGN_DIR, exist_ok=True)
+    ap = solver.curAP
+    zero_launches()
+    t0 = time.perf_counter()
+    est = solver.solveErrorEstimate(ap, "cl")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    k1, k2_err = launches()
+    print(f"  solveErrorEstimate(cl) on the {'x'.join(map(str, FULL_DIMS))} "
+          f"wing: {est!r} in {wall:.3f} s ({solver.adjoint_info.iters} GMRES "
+          f"iterations); K2 launches {k2_err} (expected 2: the vjp in w of "
+          f"the adjoint solve and the residual), K1 {k1}")
+    assert np.isfinite(est) and k2_err == 2 and k1 == 0, (est, k2_err, k1)
+
+    zero_launches()
+    alpha, log, wall = cl_solve("cuda:0")
+    k1, k2_cl = launches()
+    ref_alpha, ref_log, ref_wall = cl_ref.result()
+    expected = sum(r[3] for r in log)
+    print(f"  solveCL to cl {CL_STAR:g} from alpha {CL_ALPHA0:g}, "
+          f"{CL_OPTS}: card {alpha!r} in {wall:.3f} s, CPU (float64, "
+          f"{CL_REF_THREADS} threads) {ref_alpha!r} in {ref_wall:.3f} s")
+    for (a, c, n, _, r), (ra, rc, rn, _, rr) in zip(log, ref_log):
+        print(f"    alpha {a:.9f} / {ra:.9f}: cl {c:.7f} / {rc:.7f} "
+              f"(diff {abs(c - rc):.2e}), {n} / {rn} steps, R/R0 "
+              f"{r:.2e} / {rr:.2e}")
+    print(f"  K2 launches {k2_cl} (expected {expected}: 2 + the steps' "
+          f"evaluations a solve), K1 {k1}")
+    assert len(log) == len(ref_log)
+    assert abs(alpha - ref_alpha) < CL_ALPHA_ATOL, (alpha, ref_alpha)
+    assert all(abs(c - rc) < CL_ATOL for (_, c, *_), (_, rc, *_)
+               in zip(log, ref_log))
+    assert abs(log[-1][1] - CL_STAR) < CL_TOL
+    assert k2_cl == expected and k1 == 0, (k2_cl, expected, k1)
+
+    zero_launches()
+    sent = []
+    row = api._IterMonitor.__call__
+
+    def monitor_row(self, it, *args, **kwargs):
+        row(self, it, *args, **kwargs)
+        if not sent:
+            sent.append(it)
+            os.kill(os.getpid(), signal.SIGUSR2)
+
+    before = signal.getsignal(signal.SIGUSR2)
+    api._IterMonitor.__call__ = monitor_row
+    try:
+        s = api.ADFLOW(options=dict(
+            euler_options(50), L2Convergence=1e-14, printIterations=True,
+            outputDirectory=DESIGN_DIR), mesh=wing_omesh(ni=16, nj=8, nk=8))
+        s(AeroProblem(**dict(EULER, name="sig")))
+    finally:
+        api._IterMonitor.__call__ = row
+    written = sorted(os.path.basename(f)
+                     for f in glob.glob(os.path.join(DESIGN_DIR, "*_sig*")))
+    print(f"  SIGUSR2 sent by the monitor after step {sent[0]}: the solve "
+          f"stopped after {s.solve_info.iterations} steps and wrote "
+          f"{written}")
+    assert s.solve_info.iterations == sent[0] == 1
+    assert written == ["sig_sig_000_surf.dat", "sig_sig_000_vol.cgns"]
+    assert signal.getsignal(signal.SIGUSR2) is before
+
+    trace_dir = os.path.join(DESIGN_DIR, "trace")
+    s = api.ADFLOW(options=dict(euler_options(1), jaxProfileDir=trace_dir),
+                   mesh=wing_omesh(ni=16, nj=8, nk=8))
+    s(AeroProblem(**EULER))
+    traces = glob.glob(os.path.join(trace_dir, "*.pt.trace.json"))
+    print(f"  jaxProfileDir: {len(traces)} trace of "
+          f"{[os.path.getsize(t) for t in traces]} bytes")
+    assert len(traces) == 1 and os.path.getsize(traces[0]) > 0
+
+    adapter = ImplicitCFDAdapter(s, s.curAP)
+    w0 = perturbed_state(s)
+    adapter.set_states(w0)
+    rng = np.random.default_rng(3)
+    nx = adapter.get_coords().size
+    vw, vx, u = (rng.standard_normal(w0.size), rng.standard_normal(nx),
+                 rng.standard_normal(w0.size))
+    fwd = float(np.dot(adapter.apply_linear_fwd(wDot=vw, xVDot=vx), u))
+    gw, gx = adapter.apply_linear_rev(u)
+    rev = float(np.dot(gw, vw) + np.dot(gx, vx))
+    dot_rel = abs(fwd - rev) / abs(fwd)
+    print(f"  MPhys adapter: <J v, u> {fwd!r}, <v, J^T u> {rev!r}, rel "
+          f"{dot_rel:.3e} (tolerance {MPHYS_DOT_RTOL:g})")
+    assert dot_rel < MPHYS_DOT_RTOL
+
+    zones = {}
+    w0 = None
+    for device in ("cpu", "cuda:0"):
+        s = api.ADFLOW(options=dict(euler_options(1),
+                                    volumeVariables=["resrho", "mach"]),
+                       mesh=wing_omesh(ni=16, nj=8, nk=8), device=device)
+        s.setAeroProblem(AeroProblem(**EULER))
+        w0 = perturbed_state(s, amp=ISO_AMP) if w0 is None else w0
+        s.setStates(w0)
+        tag = device.split(":")[0]
+        vol = os.path.join(DESIGN_DIR, f"{tag}_vol.dat")
+        iso = os.path.join(DESIGN_DIR, f"{tag}_iso.dat")
+        s.writeTecplotVolumeFile(vol)
+        s.writeIsoSurfaceFile(iso, ISO_SURFACES)
+        zones[tag] = [line.strip() for path in (vol, iso)
+                      for line in open(path) if line.startswith("ZONE")]
+    print(f"  Tecplot volume and isosurface files, card against CPU: zones "
+          f"{zones['cuda']}")
+    assert zones["cuda"] == zones["cpu"]
+    k1, k2_small = launches()
+    print(f"  the small cases' K2 launches {k2_small}, K1 {k1}")
+    assert k1 == 0
+    import shutil
+    shutil.rmtree(DESIGN_DIR)
+    return k2_err, k2_cl, k2_small
+
+
 def solver_slice(phase, scalar_pc_ms):
     """[22]-[25]; returns the K1 and K2 launches of their main paths, by
     path."""
@@ -2928,6 +3243,20 @@ def main() -> int:
     phase("[16] main path's adjoint: evalFunctionsSens of cl on the "
           f"{'x'.join(map(str, FULL_DIMS))} Euler wing")
     k2_full_adj = full_adjoint(solver)
+
+    # [28] and [29] reuse [16]'s solver; [29]'s float64 solveCL runs on the
+    # CPU in a process of its own meanwhile
+    with ProcessPoolExecutor(
+            1, mp_context=multiprocessing.get_context("spawn")) as pool:
+        cl_ref = pool.submit(cl_reference)
+        phase("[28] the design point's files on the "
+              f"{'x'.join(map(str, FULL_DIMS))} Euler wing: mesh files, "
+              "writeSolution, restart, forces, slices")
+        k2_files = design_point_files(solver)
+        phase("[29] the outer solves and run control: solveCL (card "
+              "against CPU), solveErrorEstimate at full width, SIGUSR2, "
+              "jaxProfileDir, the MPhys adapter, the volume writers")
+        k2_err, k2_cl, k2_ctl = outer_solves(solver, cl_ref)
     del solver, tensors
 
     phase("[17] the slice at full width: matrix dissipation on the "
@@ -2999,7 +3328,8 @@ def main() -> int:
          "replaces": "adflow_tpu/ops/pallas_residual.py:45",
          "design": "one pass, i-march",
          "launches": (k2_ank + k2_adj + k2_full_adj + k2_matrix + k2_small
-                      + k2_mixed + k2_sst + k2_phys + sum(k2_new.values())),
+                      + k2_mixed + k2_sst + k2_phys + sum(k2_new.values())
+                      + k2_files + k2_err + k2_cl + k2_ctl),
          "launches_by_path": {"ank_euler_wing_256x64x64": k2_ank,
                               "adjoint_euler_wing_16x8x8": k2_adj,
                               "adjoint_euler_wing_256x64x64": k2_full_adj,
@@ -3007,7 +3337,11 @@ def main() -> int:
                               "upwind_matrix_wing_16x8x8": k2_small,
                               "mixed_euler_wing_16x8x8": k2_mixed,
                               "sst_wing_256x64x64": k2_sst,
-                              "physics_small_cases": k2_phys, **k2_new},
+                              "physics_small_cases": k2_phys, **k2_new,
+                              "files_euler_wing_256x64x64": k2_files,
+                              "error_estimate_euler_wing_256x64x64": k2_err,
+                              "solve_cl_euler_wing_16x8x8": k2_cl,
+                              "run_control_small_cases": k2_ctl},
          "max_abs_err": k2_abs, "max_rel_err": k2_flux_rel, **k2_times,
          "library_ms": None},
     ]}))
