@@ -28,8 +28,21 @@ functions (api/output.py); ``solveCL``, ``solveTargetFuncs``,
 a solve (utils/signals.py) and its profiler trace (``jaxProfileDir``, kept
 by name). The solver runs on ``cuda:0`` unless the caller passes another
 device (the tests pass ``device="cpu"``); it never falls back to the CPU on
-its own. Several devices (``meshDevices > 1``) raise
-``NotImplementedError`` naming their ROADMAP.md item.
+its own.
+
+Several devices (``meshDevices`` N > 1) run one process per device, as
+ADflow runs one MPI rank per core: start N processes (``torchrun
+--nproc_per_node=N``), initialize ``torch.distributed`` (NCCL on cards,
+gloo on the CPU) and construct ``ADFLOW`` on each; ``comm`` is the
+process group (None: the default group), whose size must be N. Each rank
+takes ``cuda:{LOCAL_RANK}`` unless given a device. Construction splits
+and orders the blocks so each rank owns an equal slice of the stacked
+block axis (dist/stacked.py ``balance_blocks``); the steady solve runs
+the stacked RK start and stacked ANK over the group (``_solve_stacked``),
+every stop agreed across ranks, and gathers every block's state on every
+rank, so everything after the solve runs unchanged on each rank. Only
+rank 0 prints. ``meshAxisName`` is accepted and has no effect (the JAX
+package names its device-mesh axis with it).
 """
 
 from __future__ import annotations
@@ -48,6 +61,7 @@ from adflow_torch.api.output import OutputMixin
 from adflow_torch.core.mesh import MultiBlockMesh
 from adflow_torch.core.refstate import (
     GAMMA, AeroProblem, ReferenceState, make_reference_state)
+from adflow_torch.dist import comm as dcomm
 from adflow_torch.geom.metrics import compute_metrics_conn
 from adflow_torch.options import Options
 from adflow_torch.physics.residual import (
@@ -61,10 +75,37 @@ from adflow_torch.solvers.smoothers import residual_norms
 from adflow_torch.utils.dtypes import resolve_dtype
 
 
-def _todo(what: str, item: str):
-    return NotImplementedError(
-        f"{what} is not ported to adflow_torch yet (ROADMAP.md queue 1 "
-        f"item {item})")
+def _mesh_group(comm, n_dev: int):
+    """The process group of a ``meshDevices`` = ``n_dev`` > 1 solver:
+    ``comm``, or the default group when it is None; its size must be
+    ``n_dev``."""
+    import torch.distributed as dist
+
+    if comm is None:
+        if not (dist.is_available() and dist.is_initialized()):
+            raise ValueError(
+                f"meshDevices={n_dev} runs one process per device: "
+                f"initialize torch.distributed (e.g. under torchrun) or "
+                f"pass a process group as comm")
+        comm = dist.group.WORLD
+    if not isinstance(comm, dist.ProcessGroup):
+        raise ValueError(f"meshDevices={n_dev} takes a torch.distributed "
+                         f"process group as comm, not {type(comm).__name__}")
+    size = dist.get_world_size(comm)
+    if size != n_dev:
+        raise ValueError(
+            f"meshDevices={n_dev} but the process group has {size} ranks")
+    return comm
+
+
+def _rank_device(group) -> str:
+    """This rank's card: cuda:{LOCAL_RANK}, else rank % device count."""
+    if group is None:
+        return "cuda:0"
+    local = os.environ.get("LOCAL_RANK")
+    idx = (int(local) if local is not None
+           else dcomm.world(group)[0] % torch.cuda.device_count())
+    return f"cuda:{idx}"
 
 
 class _IterMonitor:
@@ -142,20 +183,31 @@ class ADFLOW(OutputMixin):
                  mesh: Optional[MultiBlockMesh] = None,
                  comm=None, debug: bool = False, device=None, **kwargs):
         self.options = Options(options or {})
+        # several devices: one process per device in ``comm``'s group
+        n_dev = int(self.options["meshDevices"])
+        self._group = _mesh_group(comm, n_dev) if n_dev > 1 else None
+        self._rank = dcomm.world(self._group)[0]
         if device is None:
             if not torch.cuda.is_available():
                 raise RuntimeError(
                     "ADFLOW runs on cuda:0 and no CUDA device is present; "
                     "pass device='cpu' to run on the CPU")
-            device = "cuda:0"
+            device = _rank_device(self._group)
         self.device = torch.device(device)
         self.dtype = resolve_dtype(self.options["precision"], self.device)
-        self._reject_unported_options()
 
         if mesh is None:
             from adflow_torch.io.meshio import read_mesh
             mesh = read_mesh(self.options["gridFile"])
         mesh.validate()
+        # split and order the blocks so each rank owns an equal slice of
+        # the stacked block axis (the reference's loadBalanceGrid,
+        # loadBalance.F90:5); the solve then runs the stacked path
+        # (_solve_stacked), everything else sees the split mesh normally
+        self._stack_order = None
+        if n_dev > 1:
+            from adflow_torch.dist.stacked import balance_blocks
+            mesh, self._stack_order = balance_blocks(mesh, n_dev)
         self.mesh = mesh
         # overset assembly (reference preprocessingoverset -> oversetComm,
         # oversetAPI.F90:7; the explicit cut callback of pyADflow.py:4370)
@@ -235,11 +287,6 @@ class ADFLOW(OutputMixin):
         self._ap_states: Dict[str, list] = {}
         self._ap_winfs: Dict[str, object] = {}
         self.solve_info = None
-
-    def _reject_unported_options(self):
-        opt = self.options
-        if int(opt["meshDevices"]) > 1:
-            raise _todo("meshDevices > 1", "12")
 
     def _overset_surfaces(self, mesh):
         """The overlap weights of the wall patches and, with
@@ -405,7 +452,7 @@ class ADFLOW(OutputMixin):
         t0 = time.time()
 
         monitor = None
-        if opt["printIterations"]:
+        if opt["printIterations"] and self._rank == 0:
             mv = (opt["monitorVariables"] if opt["setMonitor"]
                   else ["resrho", "resturb"])
             monitor = _IterMonitor(self, mv)
@@ -438,19 +485,22 @@ class ADFLOW(OutputMixin):
         self.solve_info = info
         ap.solveFailed = bool(info.failed)
         ap.fatalFail = bool(info.failed)
-        if opt["printTiming"]:
+        if opt["printTiming"] and self._rank == 0:
             print(f"  solve wall time: {time.time() - t0:.2f} s "
                   f"({info.iterations} iterations, "
                   f"R {info.total_r0:.3e} -> {info.total_r_final:.3e})")
 
     def _solve_steady(self, opt, monitor, deadline, signal_check):
         """The steady branch of ``__call__``: the full-multigrid start,
-        then the Newton driver, FAS multigrid or the RK/DADI smoother.
+        then the stacked solve over the ranks (``meshDevices > 1``), the
+        ANK/NK solver, FAS multigrid or the RK/DADI smoother.
         Sets the state and returns the SolveInfo."""
         self._fmg_start(opt)
         use_nk = bool(opt["useNKSolver"])
         use_ank = bool(opt["useANKSolver"])
-        if use_nk or use_ank:
+        if int(opt["meshDevices"]) > 1:
+            w_list, info = self._solve_stacked(opt, monitor, deadline)
+        elif use_nk or use_ank:
             from adflow_torch.solvers.newton import solve_newton_driver
             w_list, info = solve_newton_driver(
                 self.w_list, self.metrics_list, self.topo, self.cfg,
@@ -484,6 +534,121 @@ class ADFLOW(OutputMixin):
                 signal_check=signal_check)
         self.w_list = w_list
         return info
+
+    def _solve_stacked(self, opt, monitor, deadline):
+        """The several-device steady solve: this rank's slots of the
+        stacked blocks, RK start then stacked ANK with the SER CFL
+        controller (dist/stacked.py), every Krylov reduction and norm over
+        the process group (the reference's MPI domain decomposition and
+        parallel PETSc KSP). Every stop is agreed: the norms are reduced,
+        and the deadline is an all-reduced flag. Returns the whole state
+        list, gathered on every rank, and the SolveInfo."""
+        from adflow_torch.dist import stacked as dstk
+
+        mode = str(opt["haloExchangeMode"]).lower()
+        if mode != "gather":
+            raise NotImplementedError(
+                "the API multi-device route uses the stacked-blocks layout "
+                "(haloExchangeMode='gather'); the k-split ring is available "
+                "through adflow_torch.dist.sharded for single-block meshes")
+        group = self._group
+        warped = self._warped_mesh()
+        prob = dstk.build_stacked_problem(warped, self._stack_order,
+                                          group=group, dtype=self.dtype,
+                                          device=self.device)
+        sm = dstk.stack_metrics(warped, prob, self.dtype,
+                                metrics_all=self._metrics_base)
+        extras = None
+        if self.cfg.rans:
+            extras = {"walldist": dstk.stack_walldist(
+                warped, prob, [ex["walldist"] for ex in self.extras_list],
+                self.dtype)}
+        winf = self.winf
+        w = dstk.stack_from_list(prob, self.w_list, winf, self.dtype)
+
+        n_cycles = int(opt["nCycles"])
+        use_ank = bool(opt["useANKSolver"])
+        rk = dstk.make_stacked_rk_step(prob, self.cfg, self.ref,
+                                       cfl=float(opt["CFL"]))
+        m_sub = int(opt["ANKSubspaceSize"])
+        m_sub = max(m_sub, 1) if m_sub > 0 else 50
+        report = monitor if (monitor and not monitor.needs_state) else None
+
+        def out_of_time():
+            return deadline is not None and dcomm.agreed(
+                time.time() >= deadline, group)
+
+        hist = []
+        it = 0
+        failed = False
+        r0 = rnorm = None
+        ank_switch_rel = float(opt["ANKSwitchTol"])
+        target_rel = float(opt["L2Convergence"])
+        # RK start until the ANK window
+        while it < n_cycles:
+            w, norms = rk(w, sm, winf, extras)
+            nm, nt = norms.tolist()
+            rnorm = nm + nt
+            it += 1
+            if r0 is None:
+                r0 = rnorm
+            hist.append([rnorm, 0.0])
+            if report:
+                report(it, rnorm, 0.0, itertype="RK*")
+            if not math.isfinite(rnorm):
+                failed = True
+                break
+            if rnorm <= target_rel * r0:
+                break
+            if use_ank and rnorm <= ank_switch_rel * r0:
+                break
+            if out_of_time():
+                break
+        # stacked ANK with the SER CFL controller
+        if use_ank and not failed and rnorm > target_rel * r0:
+            cfl = float(opt["ANKCFL0"])
+            cutback = float(opt["ANKCFLCutback"])
+            factor = float(opt["ANKCFLFactor"])
+            cfl_limit = float(opt["ANKCFLLimit"])
+            lin_res_max = float(opt["ANKLinResMax"])
+            n_reject = 0
+            while it < n_cycles and rnorm > target_rel * r0:
+                if out_of_time():
+                    break
+                w_new, _rn, rnew, linres = dstk.stacked_ank_step(
+                    w, sm, prob, self.cfg, self.ref, winf, cfl,
+                    extras=extras, m=m_sub,
+                    lintol=float(opt["ANKLinearSolveTol"]))
+                it += 1
+                if not math.isfinite(rnew) or rnew > 10.0 * rnorm:
+                    cfl = max(cfl * cutback, 1.0)
+                    n_reject += 1
+                    if n_reject > 25:
+                        failed = True
+                        break
+                    continue
+                n_reject = 0
+                w = w_new
+                rnorm = rnew
+                hist.append([rnorm, 0.0])
+                if report:
+                    report(it, rnorm, 0.0, cfl=cfl, linres=linres,
+                           itertype="ANK*")
+                if linres > lin_res_max:
+                    cfl = max(cfl * cutback, 1.0)
+                else:
+                    cfl = min(cfl * factor, cfl_limit)
+
+        w_list = dstk.unstack_to_list(prob, dcomm.gather_stack(w, group),
+                                      self.w_list)
+        info = steady.SolveInfo(
+            converged=bool(rnorm is not None
+                           and rnorm <= target_rel * max(r0, 1e-300)),
+            failed=bool(failed), iterations=it,
+            total_r0=float(r0 or 0.0),
+            total_r_final=float(rnorm if rnorm is not None else np.nan),
+            history=np.asarray(hist) if hist else np.zeros((0, 2)))
+        return w_list, info
 
     @contextlib.contextmanager
     def _profiler(self, trace_dir):
@@ -1207,6 +1372,23 @@ class ADFLOW(OutputMixin):
                   f"{rep['n_twisted_cells']} twisted cells "
                   f"(min vol {rep['min_volume']:.3e})")
         return rep
+
+    def checkPartitioning(self, nprocs: int):
+        """Load-balance quality for a hypothetical ``nprocs`` devices
+        (reference: pyADflow.checkPartitioning:1161 / loadBalance.F90):
+        (load_imbalance, face_imbalance_placeholder) after the block
+        splitting the balancer would perform."""
+        from adflow_torch.dist.stacked import balance_blocks
+        m2, order = balance_blocks(self.mesh, nprocs)
+        sizes = np.zeros(nprocs)
+        per = len(order) // nprocs
+        for c in range(nprocs):
+            for pos in order[c * per:(c + 1) * per]:
+                if pos >= 0:
+                    sizes[c] += m2.blocks[pos].n_cells
+        ideal = m2.n_cells / nprocs
+        imbalance = float(sizes.max() / ideal - 1.0)
+        return imbalance, 0.0
 
     def checkOverset(self, printReport: bool = True) -> dict:
         """Overset-connectivity report (reference: the ``oversetCheck.py`` /

@@ -233,10 +233,14 @@ _DEFAULT_OPTIONS: Dict[str, Any] = {
     # ----- device-side additions (no reference analogue) -----
     "precision": "auto",        # 'auto' | 'float32' | 'float64' | 'tf32'
                                 # auto: float64 on CPU, float32 on CUDA
-    "meshDevices": 1,            # number of chips in the block-parallel mesh
-    "meshAxisName": "blocks",
+    # devices of the stacked-block solve: one process each, the size of
+    # the process group ADFLOW takes as ``comm`` (api/solver.py)
+    "meshDevices": 1,
+    "meshAxisName": "blocks",    # accepted; no effect in this package
     "blockPadding": "bucket",    # 'bucket' | 'max' — pad blocks to shape buckets
-    "haloExchangeMode": "gather",  # 'gather' | 'ppermute'
+    # 'gather': the stacked exchange (dist/comm.py); 'ppermute' raises, the
+    # k-split ring being dist/sharded.py's, for single-block meshes
+    "haloExchangeMode": "gather",
     "deterministicReductions": True,
     "linePCAxes": "auto",        # line-implicit PC sweep directions
     "linePCKappa": 0.25,         # scalar-dissipation splitting factor
@@ -268,6 +272,8 @@ _INERT_OPTIONS = {
     # max dims) — 'max' semantics; multiple size buckets not implemented
     "blockPadding",
     "deterministicReductions",
+    # the JAX package's device-mesh axis name; a process group has none
+    "meshAxisName",
 }
 
 _DEPRECATED_OPTIONS = {

@@ -13,9 +13,10 @@ krylov.py; reference: the PETSc KSP GMRES of NKSolvers.F90).
 - The loop stops on a non-finite g[k] too: an overflowed or NaN Arnoldi
   state would otherwise run to k = m with zero rotations and report an
   exactly-0.0 residual.
-
-The JAX package's ``axis_name`` (shard-local vectors completed by psum) is
-not ported (ROADMAP.md queue 1 item 12).
+- ``group`` (the JAX package's ``axis_name``): the vectors are rank-local
+  pieces of one global vector, and every dot product and norm is completed
+  by an ``all_reduce`` over the process group before it reaches the host
+  Hessenberg problem, so every rank takes the same decisions.
 """
 
 from __future__ import annotations
@@ -51,23 +52,26 @@ def _back_substitute(H, g, k):
 def gmres(matvec: Callable, b: torch.Tensor,
           x0: Optional[torch.Tensor] = None, m: int = 30, restarts: int = 1,
           tol: float = 1e-2, atol: float = 0.0,
-          precond: Optional[Callable] = None) -> GmresResult:
+          precond: Optional[Callable] = None, group=None) -> GmresResult:
     """Solve A x = b with restarted GMRES(m).
 
     matvec: v -> A v on flat vectors; precond: v -> M^-1 v (right PC).
-    tol is relative to ||b||.
+    tol is relative to ||b||. ``group``: a ``torch.distributed`` process
+    group over whose ranks the vectors are split, or None.
     """
+    from adflow_torch.dist.comm import all_sum, global_norm
+
     Minv = precond or _identity
     n = b.shape[0]
     x = torch.zeros_like(b) if x0 is None else x0
-    b_norm = float(torch.linalg.norm(b))
+    b_norm = float(global_norm(b, group))
     target = max(tol * b_norm, atol)
     V = torch.empty((m + 1, n), dtype=b.dtype, device=b.device)
 
     res, total, cycles = math.inf, 0, 0
     while res > target and total < m * restarts:
         r0 = b - matvec(x)
-        beta = torch.linalg.norm(r0)
+        beta = global_norm(r0, group)
         V[0] = r0 / torch.clamp(beta, min=1e-30)
         H = np.zeros((m + 1, m))
         cs = np.zeros(m)
@@ -78,11 +82,11 @@ def gmres(matvec: Callable, b: torch.Tensor,
         while k < m and abs(g[k]) > target and math.isfinite(g[k]):
             w = matvec(Minv(V[k]))
             Vk = V[:k + 1]
-            h1 = Vk @ w
+            h1 = all_sum(Vk @ w, group)
             w = w - Vk.T @ h1
-            h2 = Vk @ w
+            h2 = all_sum(Vk @ w, group)
             w = w - Vk.T @ h2
-            hk1 = torch.linalg.norm(w)
+            hk1 = global_norm(w, group)
             V[k + 1] = w / torch.clamp(hk1, min=1e-30)
             col = np.zeros(m + 1)
             col[:k + 2] = torch.cat([h1 + h2, hk1[None]]).double().cpu().numpy()

@@ -113,6 +113,15 @@ well). Then, each phase timed:
            ``jaxProfileDir`` trace, the MPhys adapter's dot-product
            identity and the Tecplot volume and isosurface writers against
            the CPU's. [28] and [29] run right after [16], on its solver.
+  [30]     several devices, under an NCCL process group of one rank on the
+           card: ``checkPartitioning(4)`` and ``balance_blocks`` of the
+           main path's wing (4 slots of 64x64x64), the stacked Euler
+           residual at [16]'s state against the single block's (exactly 4
+           K2 launches), the stacked exchange bitwise equal to the CPU's,
+           1 stacked ANK step timed (K2 exactly 4 a residual evaluation),
+           3 stacked RK steps of the viscous RANS-SA wing (K1 exactly 4 x 5
+           a step); the small wing's stacked ANK step and the k-split
+           residual, card against CPU. It runs right after [29].
 Any failed check raises, so the exit code is not 0. The last line is
 ``{"ok": true, "device": {...}}``; the line before it lists the kernels with
 their launches, errors and times (``ms`` by CUDA events around calls of the
@@ -3093,6 +3102,275 @@ def outer_solves(solver, cl_ref):
     return k2_err, k2_cl, k2_small
 
 
+# [30], several devices: the stacked layout at full width under an NCCL
+# process group of one rank (the card machine has one card; NCCL refuses
+# two ranks on one card, so the several-rank logic is held by the gloo
+# tests on the CPU). The main path's wing balanced over 4 gives 4 slots of
+# 64x64x64, so every stacked evaluation launches its kernel 4 times.
+STACK_SLOTS = 4
+STACK_RES_RTOL = FLUX_RTOL   # stacked vs single-block residual, flux scale
+STACK_RK_STEPS = 3
+STACK_CFL = 5.0
+STACK_SMALL_DIMS = (16, 8, 8)
+
+
+def nccl_group():
+    """An NCCL process group of one rank on cuda:0, at a free localhost
+    port; its failure fails the run."""
+    import socket
+
+    import torch.distributed as dist
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{port}",
+                            rank=0, world_size=1,
+                            device_id=torch.device("cuda:0"))
+    assert dist.get_backend() == "nccl" and dist.get_world_size() == 1
+    return dist.group.WORLD
+
+
+def i_offsets(block, mesh2):
+    """Each block of ``mesh2`` (``block`` cut along i) as its first i
+    index in ``block``."""
+    out = []
+    for b in mesh2.blocks:
+        assert b.dims[1:] == block.dims[1:], b.dims
+        hit = np.nonzero(np.all(block.x[:, 0, 0] == b.x[0, 0, 0], axis=-1))
+        out.append(int(hit[0][0]))
+    return out
+
+
+def stacked_solver(mesh2, order, options, ap_kw, device, group=None):
+    """An ADFLOW on the balanced mesh (its cfg, reference state, metrics
+    and wall distances) and the stacked problem, metrics, wall distances
+    and free-stream stack of ``device``."""
+    from adflow_torch.api.solver import ADFLOW
+    from adflow_torch.core.refstate import AeroProblem
+    from adflow_torch.dist import stacked
+
+    s = ADFLOW(options=options, mesh=mesh2, device=device)
+    s.setAeroProblem(AeroProblem(**ap_kw))
+    prob = stacked.build_stacked_problem(mesh2, order, group=group,
+                                         dtype=s.dtype, device=s.device)
+    sm = stacked.stack_metrics(mesh2, prob, s.dtype,
+                               metrics_all=s._metrics_base)
+    extras = None
+    if s.cfg.rans:
+        extras = {"walldist": stacked.stack_walldist(
+            mesh2, prob, [e["walldist"] for e in s.extras_list], s.dtype)}
+    return s, prob, sm, extras
+
+
+def counted_ank_step(*args, **kwargs):
+    """``stacked_ank_step`` and the residual evaluations it made."""
+    from adflow_torch.dist import stacked
+    calls = [0]
+    plain = stacked.stacked_residual
+
+    def counting(*a, **k):
+        calls[0] += 1
+        return plain(*a, **k)
+
+    stacked.stacked_residual = counting
+    try:
+        out = stacked.stacked_ank_step(*args, **kwargs)
+    finally:
+        stacked.stacked_residual = plain
+    return out, calls[0]
+
+
+def stacked_main_path(solver, group):
+    """[30] at full width on [12]'s solved Euler wing: checkPartitioning,
+    the balance, the stacked residual against the single-block one, the
+    exchange against the CPU's, 1 stacked ANK step; then 3 stacked RK
+    steps of the viscous RANS-SA wing. Returns (K1, K2) launches."""
+    from adflow_torch.dist import comm, stacked
+    from adflow_torch.meshgen.analytic import wing_omesh
+    from adflow_torch.physics.residual import residual_list
+    from adflow_torch.physics.thermo import pressure
+
+    t0 = time.perf_counter()
+    imb, _ = solver.checkPartitioning(STACK_SLOTS)
+    mesh2, order = stacked.balance_blocks(solver.mesh, STACK_SLOTS)
+    dims = [b.dims for b in mesh2.blocks]
+    print(f"  checkPartitioning({STACK_SLOTS}) imbalance {imb!r}; "
+          f"balance_blocks: {dims}, order {order} "
+          f"({time.perf_counter() - t0:.3f} s)")
+    ni, nj, nk = solver.mesh.blocks[0].dims
+    assert imb == 0.0 and dims == [(ni // STACK_SLOTS, nj, nk)] * STACK_SLOTS
+
+    # the stacked Euler residual at the solved state against the block's
+    s2, prob, sm, _ = stacked_solver(
+        mesh2, order, euler_options(1), EULER, "cuda:0", group)
+    offs = i_offsets(solver.mesh.blocks[0], mesh2)
+    wsol = solver.w_list[0]
+    w_list = []
+    for b, lo in zip(mesh2.blocks, offs):
+        wb = s2.winf.expand(tuple(d + 4 for d in b.dims) + (5,)).clone()
+        wb[2:-2, 2:-2, 2:-2] = wsol[2 + lo:2 + lo + b.dims[0], 2:-2, 2:-2]
+        w_list.append(wb)
+    w = stacked.stack_from_list(prob, w_list, s2.winf, s2.dtype)
+    zero_launches()
+    r = stacked.stacked_residual(w, sm, prob, s2.cfg, s2.ref, s2.winf)
+    torch.cuda.synchronize()
+    k1_res, k2_res = launches()
+    r1 = residual_list(solver.w_list, solver.metrics_list, solver.topo,
+                       solver.cfg, solver.ref, solver.winf)[0]
+    wf = solver._filled_w()[0]
+    m = solver.metrics_list[0]
+    scale = flux_scale(wf, pressure(wf), (m.siE, m.sjE, m.skE))
+    err = 0.0
+    for b, pos in enumerate(prob.slots):
+        orig = prob.order[pos]
+        lo, n = offs[orig], mesh2.blocks[orig].dims[0]
+        d = (r[b] - r1[lo:lo + n]).abs().amax(dim=(0, 1, 2)) / scale
+        err = max(err, float(d.max()))
+    print(f"  stacked Euler residual (4 slots) against the single block: "
+          f"{err:.3e} of the flux scale (tolerance {STACK_RES_RTOL:g}); "
+          f"K2 launches {k2_res}, K1 {k1_res}")
+    assert k2_res == STACK_SLOTS and k1_res == 0, (k2_res, k1_res)
+    assert err < STACK_RES_RTOL
+
+    # the exchange on the card against the CPU's, same f32 input
+    prob_cpu = stacked.build_stacked_problem(mesh2, order,
+                                             dtype=torch.float32)
+    ex = comm.exchange(w, prob.plan).cpu()
+    ex_cpu = comm.exchange(w.cpu(), prob_cpu.plan)
+    n_ghost = len(prob.halo.dst_flat)
+    print(f"  exchange of {n_ghost} ghost cells: card bitwise equal to CPU "
+          f"{torch.equal(ex, ex_cpu)}")
+    assert torch.equal(ex, ex_cpu)
+
+    # 1 stacked ANK step from the solved state, timed
+    zero_launches()
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    (w_new, rn, rnew, lin), evals = counted_ank_step(
+        w, sm, prob, s2.cfg, s2.ref, s2.winf, STACK_CFL)
+    torch.cuda.synchronize()
+    t_ank = time.perf_counter() - t1
+    k1_ank, k2_ank = launches()
+    print(f"  1 stacked ANK step (CFL {STACK_CFL:g}): res {rn:.6e} -> "
+          f"{rnew:.6e}, linres {lin:.3e}, {t_ank * 1e3:.3f} ms; residual "
+          f"evaluations {evals}, K2 launches {k2_ank} (expected "
+          f"{STACK_SLOTS} x {evals}), K1 {k1_ank}")
+    assert k2_ank == STACK_SLOTS * evals and k1_ank == 0
+    assert np.isfinite(rnew) and torch.isfinite(w_new).all()
+    del s2, w, w_new, r, r1, ex, ex_cpu
+
+    # 3 stacked RK steps of the viscous RANS-SA wing through K1
+    mesh_v = wing_omesh(ni=FULL_DIMS[0], nj=FULL_DIMS[1], nk=FULL_DIMS[2],
+                        viscous=True)
+    mesh_v2, order_v = stacked.balance_blocks(mesh_v, STACK_SLOTS)
+    s3, prob_v, sm_v, ex_v = stacked_solver(
+        mesh_v2, order_v, solver_options(1), M6, "cuda:0", group)
+    step = stacked.make_stacked_rk_step(prob_v, s3.cfg, s3.ref,
+                                        cfl=float(s3.options["CFL"]))
+    wv = stacked.stack_state(prob_v, s3.winf, s3.dtype)
+    zero_launches()
+    norms, ms = [], []
+    for _ in range(STACK_RK_STEPS):
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        wv, nrm = step(wv, sm_v, s3.winf, ex_v)
+        norms.append(nrm.tolist())
+        ms.append((time.perf_counter() - t2) * 1e3)
+    k1_rk, k2_rk = launches()
+    print(f"  {STACK_RK_STEPS} stacked RK steps of the RANS-SA wing "
+          f"({STACK_SLOTS} slots of "
+          f"{'x'.join(map(str, mesh_v2.blocks[0].dims))}): norms "
+          f"{norms}, ms {[round(t, 3) for t in ms]}; K1 launches {k1_rk} "
+          f"(expected {STACK_SLOTS} x {RK_STAGES} x {STACK_RK_STEPS}), "
+          f"K2 {k2_rk}")
+    assert k1_rk == STACK_SLOTS * RK_STAGES * STACK_RK_STEPS and k2_rk == 0
+    assert np.all(np.isfinite(norms)) and torch.isfinite(wv).all()
+    return k1_rk, k2_res + k2_ank
+
+
+def small_stacked_parity(group):
+    """[30] on the small wing, card (f32) against CPU (f64): one stacked
+    ANK step from a seeded perturbation over 4 slots, and the k-split
+    residual (one shard: the group has one rank)."""
+    from adflow_torch.dist import sharded, stacked
+    from adflow_torch.geom.metrics import compute_metrics
+    from adflow_torch.meshgen.analytic import wing_omesh
+    from adflow_torch.physics.thermo import pressure
+
+    mesh = wing_omesh(*STACK_SMALL_DIMS)
+    mesh2, order = stacked.balance_blocks(mesh, STACK_SLOTS)
+    runs, w0 = {}, None
+    zero_launches()
+    for device in ("cpu", "cuda:0"):
+        s, prob, sm, _ = stacked_solver(
+            mesh2, order, euler_options(1), EULER, device,
+            group if device != "cpu" else None)
+        w = stacked.stack_state(prob, s.winf, torch.float64)
+        if w0 is None:
+            rng = np.random.default_rng(0)
+            w0 = w.numpy() * (1.0 + 1e-3 * rng.standard_normal(w.shape))
+        w = torch.as_tensor(w0, dtype=s.dtype, device=s.device)
+        (w_new, rn, rnew, lin), evals = counted_ank_step(
+            w, sm, prob, s.cfg, s.ref, s.winf, STACK_CFL)
+        runs[device] = ((w_new - w).double().cpu().numpy(),
+                        np.array([rn, rnew, lin]), evals)
+    k1, k2 = launches()
+    (dc, sc, ec), (dg, sg, eg) = runs["cpu"], runs["cuda:0"]
+    d_rel = float(np.abs(dg - dc).max() / np.abs(dc).max())
+    s_rel = float(np.abs(sg[:2] - sc[:2]).max() / np.abs(sc[:2]).max())
+    print(f"  wing {'x'.join(map(str, STACK_SMALL_DIMS))} over "
+          f"{STACK_SLOTS} slots, 1 stacked ANK step: card (f32) vs CPU "
+          f"(f64) update rel err {d_rel:.3e}, norms rel err {s_rel:.3e} "
+          f"(tolerance {ANK_SOLVE_RTOL:g}); evaluations card {eg}, CPU "
+          f"{ec}; K2 launches {k2} (expected {STACK_SLOTS} x {eg})")
+    assert d_rel < ANK_SOLVE_RTOL and s_rel < ANK_SOLVE_RTOL
+    assert k2 == STACK_SLOTS * eg and k1 == 0, (k1, k2)
+
+    # the k-split residual, one shard on each side
+    res = {}
+    zero_launches()
+    for device in ("cpu", "cuda:0"):
+        s, _, _, _ = stacked_solver(mesh2, order, euler_options(1), EULER,
+                                    device, None)
+        g = group if device != "cpu" else None
+        prob = sharded.build_sharded_problem(mesh, 1, group=g,
+                                             dtype=s.dtype, device=s.device)
+        x = torch.as_tensor(mesh.blocks[0].x, dtype=s.dtype, device=s.device)
+        met = sharded.shard_of(sharded.split_metrics(compute_metrics(x), 1),
+                               0)
+        rng = np.random.default_rng(1)
+        wb = s.winf.double().cpu().numpy() * (1.0 + 1e-3 * rng.standard_normal(
+            tuple(d + 4 for d in mesh.blocks[0].dims) + (5,)))
+        wb = torch.as_tensor(wb, dtype=s.dtype, device=s.device)
+        r = sharded.sharded_residual(wb, met, prob, s.cfg, s.ref, s.winf)
+        wf = sharded.fill_halos_sharded(wb, met, prob, s.ref, s.winf)
+        res[device] = (r.double().cpu(), flux_scale(
+            wf.double(), pressure(wf.double()),
+            (met.siE.double(), met.sjE.double(), met.skE.double())).cpu())
+    k1s, k2s = launches()
+    (rc, scale), (rg, _) = res["cpu"], res["cuda:0"]
+    err = float(((rg - rc).abs().amax(dim=(0, 1, 2)) / scale).max())
+    print(f"  k-split residual (1 shard) card vs CPU: {err:.3e} of the flux "
+          f"scale (tolerance {STACK_RES_RTOL:g}); K2 launches {k2s}")
+    assert err < STACK_RES_RTOL and k2s == 1 and k1s == 0
+    return k2 + k2s
+
+
+def dist_path(solver):
+    """[30]; returns the K1 and K2 launches of its paths, by path."""
+    import torch.distributed as dist
+
+    group = nccl_group()
+    try:
+        k1_rk, k2_full = stacked_main_path(solver, group)
+        k2_small = small_stacked_parity(group)
+    finally:
+        dist.destroy_process_group()
+    return ({"stacked_rk_rans_wing_4x64x64x64": k1_rk},
+            {"stacked_euler_wing_4x64x64x64": k2_full,
+             "stacked_small_cases": k2_small})
+
+
 def solver_slice(phase, scalar_pc_ms):
     """[22]-[25]; returns the K1 and K2 launches of their main paths, by
     path."""
@@ -3257,6 +3535,11 @@ def main() -> int:
               "against CPU), solveErrorEstimate at full width, SIGUSR2, "
               "jaxProfileDir, the MPhys adapter, the volume writers")
         k2_err, k2_cl, k2_ctl = outer_solves(solver, cl_ref)
+    phase(f"[30] several devices: the {'x'.join(map(str, FULL_DIMS))} wings "
+          f"balanced over {STACK_SLOTS} slots under an NCCL group of one "
+          "rank: the stacked residual, exchange, RK and ANK steps; the small "
+          "wing card against CPU")
+    k1_dist, k2_dist = dist_path(solver)
     del solver, tensors
 
     phase("[17] the slice at full width: matrix dissipation on the "
@@ -3297,6 +3580,8 @@ def main() -> int:
           "airfoil in its background, the zipper, a user surface, cperror2, "
           "the overset adjoint, a warp with the quick wall distance")
     k1_ovs_small, k2_ovs_small = small_overset_parity()
+    k1_new.update(k1_dist)
+    k2_new.update(k2_dist)
     k1_new["overset_rans_airfoil_256x64x64_in_background"] = k1_ovs
     k1_new["overset_small_cases"] = k1_ovs_small
     k2_new["overset_rans_airfoil_256x64x64_in_background"] = 0

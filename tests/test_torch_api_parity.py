@@ -1,12 +1,12 @@
 """The port's ``ADFLOW`` against the JAX package's, class against class:
 
-- the JAX methods with no port counterpart are exactly the item-12 ones
-  (several devices: ``_solve_stacked`` and ``checkPartitioning``) and
+- the only JAX method with no port counterpart is
   ``_finalize_actuator_sources``, a no-op there that the port leaves out
   (its actuator energy row is evaluated in the residual);
 - every public method the two share has the same signature;
-- ``_reject_unported_options`` raises only for ``meshDevices > 1``, and
-  every ``_todo`` left names item 12.
+- no option is refused as unported: several devices (``meshDevices > 1``)
+  take the stacked route, and without a process group of that size they
+  raise ``ValueError``.
 """
 
 import inspect
@@ -17,7 +17,6 @@ import pytest
 from adflow_torch.api import solver as tsolver
 from adflow_tpu.api.solver import ADFLOW as JaxADFLOW
 
-ITEM_12 = {"_solve_stacked", "checkPartitioning"}
 NO_OP = {"_finalize_actuator_sources"}
 
 
@@ -26,8 +25,11 @@ def _methods(cls):
 
 
 def test_missing_methods_are_item_12():
+    """Item 12's methods (``_solve_stacked``, ``checkPartitioning``) are
+    ported; only the JAX package's no-op is left out."""
     missing = _methods(JaxADFLOW) - _methods(tsolver.ADFLOW)
-    assert missing == ITEM_12 | NO_OP
+    assert missing == NO_OP
+    assert {"_solve_stacked", "checkPartitioning"} <= _methods(tsolver.ADFLOW)
 
 
 @pytest.mark.parametrize(
@@ -39,13 +41,15 @@ def test_shared_public_signatures(name):
 
 
 def test_only_several_devices_refused():
+    """Several devices need a process group of ``meshDevices`` ranks: with
+    none, construction raises ``ValueError``; the port refuses nothing as
+    unported any more."""
     from adflow_torch.meshgen.analytic import wing_omesh
 
     mesh = wing_omesh(ni=8, nj=4, nk=4)
-    with pytest.raises(NotImplementedError, match="item 12"):
+    with pytest.raises(ValueError, match="meshDevices=2"):
         tsolver.ADFLOW(options={"meshDevices": 2}, mesh=mesh, device="cpu")
     tsolver.ADFLOW(options={"restartFile": "", "jaxProfileDir": ""},
                    mesh=mesh, device="cpu")
     src = inspect.getsource(tsolver)
-    items = re.findall(r'_todo\([^)]*?"(\d+)"\)', src, re.S)
-    assert items and set(items) == {"12"}
+    assert not re.search(r"_todo|_reject_unported_options|item 12", src)

@@ -189,9 +189,11 @@ def test_ported_branches_match_jax(branch, opts):
     ("restartFile", "restart.cgns", "13"),
 ])
 def test_unported_options_raise(option, value, item):
-    """Several devices (item 12) still raise. Restart files (item 13) are
-    ported: the solver builds, and reading the state from a file that does
-    not exist raises FileNotFoundError naming it."""
+    """Both items are ported. Several devices (item 12) take a process
+    group of ``meshDevices`` ranks, and without one construction raises
+    ValueError. Restart files (item 13): the solver builds, and reading the
+    state from a file that does not exist raises FileNotFoundError naming
+    it."""
     opts = dict(OPTS, **{option: value})
     mesh = wing_omesh(ni=8, nj=4, nk=4, viscous=True)
     if item == "13":
@@ -199,7 +201,7 @@ def test_unported_options_raise(option, value, item):
         with pytest.raises(FileNotFoundError, match=value):
             solver.setAeroProblem(AeroProblem(name="r", mach=0.5))
         return
-    with pytest.raises(NotImplementedError, match=f"item {item}"):
+    with pytest.raises(ValueError, match=f"meshDevices={value} runs one"):
         ADFLOW(options=opts, mesh=mesh, device="cpu")
 
 
