@@ -57,6 +57,7 @@ from adflow_torch.physics.residual import fill_halos, residual_list
 from adflow_torch.physics.surface import cost_functions, integrate_forces
 from adflow_torch.physics.usersurf import integrate_user_surface
 from adflow_torch.solvers.krylov import GmresResult, gmres
+from adflow_torch.utils import trace
 
 # The PC's pseudo-CFL: the same large regularization NK uses (the JAX
 # package's _transposed_line_pc and solveDirectForRHS).
@@ -199,6 +200,7 @@ def build_adjoint_fns(solver) -> AdjointFns:
 # the adjoint linear solve
 # ---------------------------------------------------------------------------
 
+@trace.spanned("adjoint.solve")
 def solve_adjoint_system(fns: AdjointFns, solver, wvec, xvec, params, rhs,
                          psi0=None, tol=1e-8, abs_tol=None, subspace=100,
                          restarts=8) -> GmresResult:
@@ -212,11 +214,12 @@ def solve_adjoint_system(fns: AdjointFns, solver, wvec, xvec, params, rhs,
         return vjp_w(v)[0]
 
     nfns = solver._newton_fns()
-    if str(solver.options["adjointGlobalPreconditioner"]).lower() == \
-            "multigrid":
-        precond = _transposed_amg_pc(nfns, solver, wvec)
-    else:
-        precond = _transposed_line_pc(nfns, wvec)
+    with trace.span("adjoint.pc_build"):
+        if str(solver.options["adjointGlobalPreconditioner"]).lower() == \
+                "multigrid":
+            precond = _transposed_amg_pc(nfns, solver, wvec)
+        else:
+            precond = _transposed_line_pc(nfns, wvec)
 
     if bool(solver.options["frozenTurbulence"]) and solver.cfg.rans:
         # frozenTurbulence (reference inputADjoint): the transposed system

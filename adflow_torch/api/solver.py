@@ -72,6 +72,7 @@ from adflow_torch.physics.surface import (
 from adflow_torch.physics.usersurf import integrate_user_surface
 from adflow_torch.solvers import steady
 from adflow_torch.solvers.smoothers import residual_norms
+from adflow_torch.utils import trace
 from adflow_torch.utils.dtypes import resolve_dtype
 
 
@@ -442,6 +443,7 @@ class ADFLOW(OutputMixin):
         self._state_winf = wnew
 
     # ------------------------------------------------------------------
+    @trace.spanned("api.solve")
     def __call__(self, ap: AeroProblem, **kwargs):
         """Solve (reference: ADFLOW.__call__:1185). ``nTimeSteps`` overrides
         nTimeStepsFine for 'unsteady'; ``alphaAmplitude`` (degrees, else
@@ -912,6 +914,7 @@ class ADFLOW(OutputMixin):
         return fill_halos(self.w_list, self.metrics_list, self.topo,
                           self.ref, self.winf)
 
+    @trace.spanned("api.eval_functions")
     def evalFunctions(self, ap: AeroProblem, funcs: dict,
                       evalFuncs: Optional[Sequence[str]] = None,
                       ignoreMissing: bool = True):
@@ -967,6 +970,7 @@ class ADFLOW(OutputMixin):
         return torch.cat(
             [w[2:-2, 2:-2, 2:-2].reshape(-1) for w in self.w_list])
 
+    @trace.spanned("api.set_states")
     def setStates(self, states):
         """Set the interior states from a flat numpy array or tensor."""
         if not torch.is_tensor(states):
@@ -1072,6 +1076,7 @@ class ADFLOW(OutputMixin):
         self.adjointFailed = not sol.converged
         return sol.x
 
+    @trace.spanned("api.eval_functions_sens")
     def evalFunctionsSens(self, ap: AeroProblem, funcsSens: dict,
                           evalFuncs: Optional[Sequence[str]] = None):
         """Total derivatives of each function with respect to alpha, beta,

@@ -41,6 +41,7 @@ import torch
 import torch.distributed as dist
 
 from adflow_torch.dist.halo import HaloTable, rotate_momentum
+from adflow_torch.utils import trace
 
 
 def world(group) -> Tuple[int, int]:
@@ -82,6 +83,7 @@ def agreed(flag: bool, group) -> bool:
         return bool(flag)
     dev = "cuda" if dist.get_backend(group) == "nccl" else "cpu"
     t = torch.tensor([1.0 if flag else 0.0], device=dev)
+    trace.host_sync()
     return bool(all_max(t, group).item() > 0.0)
 
 

@@ -225,8 +225,9 @@ _DEFAULT_OPTIONS: Dict[str, Any] = {
     "loadBalanceIter": 10,
     "setMonitor": True,
     "timeLimit": -1.0,
-    # profiler hook of the JAX package (a trace directory); kept so option
-    # dicts carry over unchanged — the port's solve raises when it is set
+    # a trace directory (the name is the JAX package's): the port writes a
+    # torch.profiler Chrome trace of each steady solve there, with the
+    # spans of utils/trace.py
     "jaxProfileDir": None,
     "storeConvHist": True,
 

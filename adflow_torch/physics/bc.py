@@ -33,6 +33,7 @@ from adflow_torch.core.refstate import GAMMA, ReferenceState
 from adflow_torch.physics.fluxes import _clip, _max, _min
 from adflow_torch.physics.thermo import (
     IMX, IMZ, IRHO, IRHOE, ITURB, laminar_viscosity, pressure)
+from adflow_torch.utils import trace
 
 H = 2  # halo depth
 
@@ -162,6 +163,7 @@ def _records(w, metrics, ref: ReferenceState, winf) -> bool:
     return any(isinstance(t, torch.Tensor) and t.requires_grad for t in ts)
 
 
+@trace.spanned("halo.bc_pass")
 def apply_bcs(w, metrics, ops: Sequence[BCOp], ref: ReferenceState, winf):
     """Fill all physical-BC halo layers of one block; returns a new tensor.
 

@@ -30,6 +30,7 @@ from adflow_torch.physics.bc import BCOp, apply_bcs, build_bc_ops
 from adflow_torch.physics.fluxes import inviscid_residual
 from adflow_torch.physics.sa import second_order
 from adflow_torch.physics.thermo import pressure
+from adflow_torch.utils import trace
 
 
 @dataclasses.dataclass(frozen=True)
@@ -162,6 +163,7 @@ def build_topology(mesh: MultiBlockMesh, cut_callback=None,
                         overset=device_table(ovs, dtype, device))
 
 
+@trace.spanned("halo.fill")
 def fill_halos(w_list, metrics_list, topo: MeshTopology,
                ref: ReferenceState, winf):
     """BC -> exchange [-> overset fringe update] -> BC sequence filling

@@ -27,6 +27,8 @@ from typing import Callable, NamedTuple, Optional
 import numpy as np
 import torch
 
+from adflow_torch.utils import trace
+
 
 class GmresResult(NamedTuple):
     x: torch.Tensor
@@ -49,6 +51,7 @@ def _back_substitute(H, g, k):
     return y
 
 
+@trace.spanned("krylov.gmres")
 def gmres(matvec: Callable, b: torch.Tensor,
           x0: Optional[torch.Tensor] = None, m: int = 30, restarts: int = 1,
           tol: float = 1e-2, atol: float = 0.0,
@@ -65,12 +68,14 @@ def gmres(matvec: Callable, b: torch.Tensor,
     n = b.shape[0]
     x = torch.zeros_like(b) if x0 is None else x0
     b_norm = float(global_norm(b, group))
+    trace.host_sync()
     target = max(tol * b_norm, atol)
     V = torch.empty((m + 1, n), dtype=b.dtype, device=b.device)
 
     res, total, cycles = math.inf, 0, 0
     while res > target and total < m * restarts:
-        r0 = b - matvec(x)
+        with trace.span("krylov.matvec"):
+            r0 = b - matvec(x)
         beta = global_norm(r0, group)
         V[0] = r0 / torch.clamp(beta, min=1e-30)
         H = np.zeros((m + 1, m))
@@ -78,37 +83,45 @@ def gmres(matvec: Callable, b: torch.Tensor,
         sn = np.zeros(m)
         g = np.zeros(m + 1)
         g[0] = float(beta)
+        trace.host_sync()
         k = 0
         while k < m and abs(g[k]) > target and math.isfinite(g[k]):
-            w = matvec(Minv(V[k]))
-            Vk = V[:k + 1]
-            h1 = all_sum(Vk @ w, group)
-            w = w - Vk.T @ h1
-            h2 = all_sum(Vk @ w, group)
-            w = w - Vk.T @ h2
-            hk1 = global_norm(w, group)
-            V[k + 1] = w / torch.clamp(hk1, min=1e-30)
-            col = np.zeros(m + 1)
-            col[:k + 2] = torch.cat([h1 + h2, hk1[None]]).double().cpu().numpy()
-            # apply the stored Givens rotations to the new column
-            for i in range(k):
-                ci, si = cs[i], sn[i]
-                col[i], col[i + 1] = (ci * col[i] + si * col[i + 1],
-                                      -si * col[i] + ci * col[i + 1])
-            # new rotation zeroing col[k+1]
-            denom = math.sqrt(col[k] * col[k] + col[k + 1] * col[k + 1])
-            ck = col[k] / max(denom, 1e-30) if denom > 0 else 1.0
-            sk = col[k + 1] / max(denom, 1e-30) if denom > 0 else 0.0
-            col[k], col[k + 1] = denom, 0.0
-            g[k + 1] = -sk * g[k]
-            g[k] = ck * g[k]
-            H[:, k] = col
-            cs[k], sn[k] = ck, sk
-            k += 1
+            with trace.span("krylov.iter"):
+                with trace.span("krylov.precond"):
+                    z = Minv(V[k])
+                with trace.span("krylov.matvec"):
+                    w = matvec(z)
+                Vk = V[:k + 1]
+                h1 = all_sum(Vk @ w, group)
+                w = w - Vk.T @ h1
+                h2 = all_sum(Vk @ w, group)
+                w = w - Vk.T @ h2
+                hk1 = global_norm(w, group)
+                V[k + 1] = w / torch.clamp(hk1, min=1e-30)
+                col = np.zeros(m + 1)
+                col[:k + 2] = torch.cat(
+                    [h1 + h2, hk1[None]]).double().cpu().numpy()
+                trace.host_sync()
+                # apply the stored Givens rotations to the new column
+                for i in range(k):
+                    ci, si = cs[i], sn[i]
+                    col[i], col[i + 1] = (ci * col[i] + si * col[i + 1],
+                                          -si * col[i] + ci * col[i + 1])
+                # new rotation zeroing col[k+1]
+                denom = math.sqrt(col[k] * col[k] + col[k + 1] * col[k + 1])
+                ck = col[k] / max(denom, 1e-30) if denom > 0 else 1.0
+                sk = col[k + 1] / max(denom, 1e-30) if denom > 0 else 0.0
+                col[k], col[k + 1] = denom, 0.0
+                g[k + 1] = -sk * g[k]
+                g[k] = ck * g[k]
+                H[:, k] = col
+                cs[k], sn[k] = ck, sk
+                k += 1
         if k > 0:
             y = torch.as_tensor(_back_substitute(H, g, k), dtype=b.dtype,
                                 device=b.device)
-            x = x + Minv(V[:k].T @ y)
+            with trace.span("krylov.precond"):
+                x = x + Minv(V[:k].T @ y)
         res = abs(g[k])
         total += k
         cycles += 1

@@ -46,6 +46,7 @@ from adflow_torch.physics.thermo import IRHO, IRHOE, pressure
 from adflow_torch.physics.timestep import viscous_spectral_radii
 from adflow_torch.solvers import steady
 from adflow_torch.solvers.krylov import gmres
+from adflow_torch.utils import trace
 
 
 # ---------------------------------------------------------------------------
@@ -368,6 +369,8 @@ def make_ank_step(fns: NewtonFns, opts, segregated: bool = False,
         # alpha <= step_min and cuts the CFL back
         alpha = torch.clamp(alphas[best], min=step_min)
         mnew = merits[best]
+        # each index by the device's argmin reads it on the host
+        trace.host_sync(2)
         wnew = wvec + alpha * sol.x
         if seg:
             if use_turb_dadi:
@@ -503,7 +506,8 @@ class _LaggedPC:
                  or rnorm <= self.update_tol * self._r
                  or not (0.25 <= cfl / self._cfl <= 4.0))
         if stale:
-            self.data = self._build(wvec, cfl)
+            with trace.span("newton.pc_build"):
+                self.data = self._build(wvec, cfl)
             self._it, self._r, self._cfl = it, rnorm, cfl
         return self.data
 
@@ -550,6 +554,7 @@ def solve_newton_driver(w_list, metrics_list, topo, cfg, ref, winf, opts,
 
     def _record(kind, cfl, res: StepResult, t0):
         st = res.stats.double().cpu().numpy()   # ONE device->host copy
+        trace.host_sync()
         steps.append(StepRecord(kind, cfl, st, res.res_evals,
                                 res.krylov_matvecs,
                                 time.perf_counter() - t0, res.w.dtype))
@@ -562,6 +567,7 @@ def solve_newton_driver(w_list, metrics_list, topo, cfg, ref, winf, opts,
          for d in fns.packer.block_dims])
     r_free = float(torch.linalg.norm(fns.res_flat(winf_vec)))
     rnorm = float(torch.linalg.norm(fns.res_flat(wvec)))
+    trace.host_sync(2)
     r0 = max(r_free, 1e-30)
     l2conv = float(opts["L2Convergence"]) * r0
     l2abs = float(opts["L2ConvergenceRel"])
@@ -645,10 +651,11 @@ def solve_newton_driver(w_list, metrics_list, topo, cfg, ref, winf, opts,
             if signal_check is not None and signal_check(
                     lambda: fns.packer.unpack_into(wvec, w_list)) == "stop":
                 break
-            t0 = time.perf_counter()
-            res = ank_step_for(rnorm)(wvec, cfl,
-                                      lagged.get(it, wvec, rnorm, cfl))
-            wnew, st = _record("ANK", cfl, res, t0)
+            with trace.span("newton.step", fns.counts):
+                t0 = time.perf_counter()
+                res = ank_step_for(rnorm)(wvec, cfl,
+                                          lagged.get(it, wvec, rnorm, cfl))
+                wnew, st = _record("ANK", cfl, res, t0)
             (_, rnew_f, _alpha_f, alpha0_f, _kiters_f, linres_f,
              umerit_f) = (float(v) for v in st)
             it += 1
@@ -738,9 +745,10 @@ def solve_newton_driver(w_list, metrics_list, topo, cfg, ref, winf, opts,
             if signal_check is not None and signal_check(
                     lambda: fns.packer.unpack_into(wvec, w_list)) == "stop":
                 break
-            t0 = time.perf_counter()
-            res = nk_step(wvec, eta, lagged.get(it, wvec, rnorm, 1e6))
-            wnew, st = _record("NK", None, res, t0)
+            with trace.span("newton.step", fns.counts):
+                t0 = time.perf_counter()
+                res = nk_step(wvec, eta, lagged.get(it, wvec, rnorm, 1e6))
+                wnew, st = _record("NK", None, res, t0)
             rnew_f = float(st[1])
             if not np.isfinite(rnew_f):
                 failed = True

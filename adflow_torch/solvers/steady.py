@@ -18,6 +18,7 @@ import torch
 
 from adflow_torch.solvers.smoothers import (
     dadi_iteration, residual_norms, rk_iteration)
+from adflow_torch.utils import trace
 
 
 class SolveInfo(NamedTuple):
@@ -60,10 +61,12 @@ def solve_rk(w_list, metrics_list, topo, cfg, ref, winf,
     while it < n_cycles:
         rows = []
         for _ in range(chunk):
-            w_list, r_list = iteration(w_list, metrics_list, topo, cfg,
-                                       ref, winf, cfl, extras_list)
+            with trace.span("smoother.cycle"):
+                w_list, r_list = iteration(w_list, metrics_list, topo, cfg,
+                                           ref, winf, cfl, extras_list)
             rows.append(torch.stack(residual_norms(r_list)))
         hist = torch.stack(rows).double().cpu().numpy()
+        trace.host_sync()
         hist_all.append(hist)
         it += hist.shape[0]
         if r0 is None:

@@ -5,7 +5,7 @@
   stops the solve after that iteration, by RK and by ANK; the handlers
   are restored afterwards (tests/test_signals.py);
 - ``jaxProfileDir`` (the option keeps its name) leaves a non-empty
-  ``torch.profiler`` trace;
+  ``torch.profiler`` trace that holds the solve's spans;
 - ``utils/performance.py`` against the JAX package's functions on the
   cases of tests/test_performance.py;
 - the MPhys components through the ``tests/miniom.py`` stub on the small
@@ -15,6 +15,7 @@
 """
 
 import glob
+import json
 import os
 import signal
 
@@ -78,12 +79,16 @@ def test_profile_dir(tmp_path):
 
     trace_dir = tmp_path / "trace"
     s = tsolver.ADFLOW(options={
-        "equationType": "euler", "useANKSolver": False, "nCycles": 2,
+        "equationType": "euler", "useANKSolver": True, "nCycles": 1,
         "jaxProfileDir": str(trace_dir), **torch_pairs.QUIET},
         mesh=wing_omesh(**WING), device="cpu")
     s(AeroProblem(**AP))
     traces = glob.glob(str(trace_dir / "*.pt.trace.json"))
     assert len(traces) == 1 and os.path.getsize(traces[0]) > 0
+    # the solve's spans (utils/trace.py) are in the trace
+    with open(traces[0]) as f:
+        names = {e.get("name") for e in json.load(f)["traceEvents"]}
+    assert {"newton.step", "krylov.matvec", "halo.fill"} <= names
 
 
 PERF_CASES = [
