@@ -5,7 +5,11 @@ Every physical BC is imposed by writing the two halo layers so the interior
 stencils see the right face states. Subfaces are extended into tangential
 halos where they touch block edges so corner halos get filled by sequential
 application. ``apply_bcs`` copies the padded state once and writes the ghost
-layers of the copy, so the caller's tensor is never modified.
+layers of the copy, so the caller's tensor is never modified. On a float32
+CUDA state whose subfaces are all of the kinds ``ops/cuda_bc.py`` computes
+(symmetry, static slip and no-slip walls without wall functions, far field,
+extrapolation, no prescribed data), the pass is one CUDA launch a subface,
+with a tangent of its own; every other pass is the plain per-op loop.
 
 Every branch of the JAX package's ``_ghost_state`` is ported, with the
 moving walls of ALE grid motion and the wall functions (Spalding's law).
@@ -30,6 +34,7 @@ import torch
 
 from adflow_torch.core.mesh import BCType, Block
 from adflow_torch.core.refstate import GAMMA, ReferenceState
+from adflow_torch.ops import cuda_bc
 from adflow_torch.physics.fluxes import _clip, _max, _min
 from adflow_torch.physics.thermo import (
     IMX, IMZ, IRHO, IRHOE, ITURB, laminar_viscosity, pressure)
@@ -163,18 +168,22 @@ def _records(w, metrics, ref: ReferenceState, winf) -> bool:
     return any(isinstance(t, torch.Tensor) and t.requires_grad for t in ts)
 
 
-@trace.spanned("halo.bc_pass")
-def apply_bcs(w, metrics, ops: Sequence[BCOp], ref: ReferenceState, winf):
-    """Fill all physical-BC halo layers of one block; returns a new tensor.
+def physical_ops(ops: Sequence[BCOp]) -> List[BCOp]:
+    """The ops a BC pass fills: all but the block-to-block and overset
+    faces, whose ghosts are exchanged or interpolated."""
+    return [op for op in ops
+            if op.bc is not BCType.B2B_MATCH and op.bc is not BCType.OVERSET]
 
-    Where autograd records (``_records``), each mirror layer is read as a
-    copy: a view of ``w`` that the ghost state's backward saved would be
-    invalidated by the next write into ``w``."""
-    copy = _records(w, metrics, ref, winf)
+
+def plain_bc_pass(w, metrics, ops: Sequence[BCOp], ref: ReferenceState,
+                  winf, copy=False):
+    """The per-op pass (counterpart of the JAX package's ``apply_bcs``):
+    copies ``w`` once and writes each op's ghost layers into the copy in
+    order. With ``copy``, each mirror layer is read as a copy: a view of
+    ``w`` that the ghost state's backward saved would be invalidated by the
+    next write into ``w``."""
     w = w.clone()
-    for op in ops:
-        if op.bc is BCType.B2B_MATCH or op.bc is BCType.OVERSET:
-            continue
+    for op in physical_ops(ops):
         nhat = _outward_normals(metrics, op)
         aux = _wall_aux(metrics, op, ref)
         for d in range(H):
@@ -183,6 +192,64 @@ def apply_bcs(w, metrics, ops: Sequence[BCOp], ref: ReferenceState, winf):
                 op, mirror.clone() if copy else mirror, nhat, ref, winf,
                 aux=aux)
     return w
+
+
+def _kernel_state(w) -> bool:
+    """Whether ``w`` is a state the BC kernel computes in: float32 on
+    CUDA."""
+    return w.is_cuda and w.dtype == torch.float32
+
+
+def _one_func_level(t) -> bool:
+    """Whether ``t`` is a plain tensor or wrapped by one ``torch.func`` grad
+    or jvp level, and no deeper: the kernel reads and writes the memory
+    under that one wrapper (``cuda_bc._under``), and under a second level
+    (a jvp of a jvp) or a vmap it would lose the outer level's part."""
+    f = torch._C._functorch
+    if f.is_functorch_wrapped_tensor(t):
+        if not f.is_gradtrackingtensor(t):
+            return False
+        t = f.get_unwrapped(t)
+    return not f.is_functorch_wrapped_tensor(t)
+
+
+def _kernel_applies(w, metrics, ops: Sequence[BCOp], ref: ReferenceState,
+                    winf) -> bool:
+    """Whether the pass is what the BC kernel pass computes
+    (``ops/cuda_bc.py``): a float32 state on CUDA; autograd not recording
+    (``_records``: the adjoint's vjps stay on the plain pass); the state,
+    the free stream and the face areas plain or under one ``torch.func``
+    jvp level; every physical op of a kind of ``cuda_bc.KINDS``, with no
+    face velocity on a wall and no wall functions on a viscous wall; no op
+    with per-subface data."""
+    if not _kernel_state(w) or _records(w, metrics, ref, winf):
+        return False
+    if not all(map(_one_func_level, (w, winf, metrics.siE, metrics.sjE,
+                                     metrics.skE))):
+        return False
+    vf = (metrics.vfI, metrics.vfJ, metrics.vfK)
+    walls = (BCType.EULER_WALL, BCType.NS_WALL_ADIABATIC)
+    return (all(op.data is None for op in ops)
+            and all(op.bc in cuda_bc.KINDS
+                    and not (op.bc in walls and vf[op.axis] is not None)
+                    and not (op.bc is BCType.NS_WALL_ADIABATIC
+                             and ref.wall_fn)
+                    for op in physical_ops(ops)))
+
+
+@trace.spanned("halo.bc_pass")
+def apply_bcs(w, metrics, ops: Sequence[BCOp], ref: ReferenceState, winf):
+    """Fill all physical-BC halo layers of one block; returns a new tensor.
+
+    Where the input is what the CUDA kernel computes (``_kernel_applies``)
+    the pass is one launch a subface (``cuda_bc.fused_bc_pass``, its jvp
+    the tangent kernel's); everywhere else it is the plain per-op pass
+    (``plain_bc_pass``), which reads each mirror layer as a copy where
+    autograd records."""
+    if _kernel_applies(w, metrics, ops, ref, winf):
+        return cuda_bc.fused_bc_pass(w, metrics, ops, ref, winf)
+    return plain_bc_pass(w, metrics, ops, ref, winf,
+                         copy=_records(w, metrics, ref, winf))
 
 
 def _reflect_momentum(m, nhat):

@@ -22,7 +22,8 @@ thread that runs the solve.
 
 Counters always count: ``host_syncs``, every device-to-host copy of the
 solve loops (``host_sync()`` where the copy is made), beside the kernels'
-``LAUNCHES`` and the Newton functions' exact residual evaluations.
+``LAUNCHES`` (K1's, K2's and the BC pass's, ``bc_launches``) and the
+Newton functions' exact residual evaluations.
 """
 
 from __future__ import annotations
@@ -34,7 +35,7 @@ from typing import Dict, List, NamedTuple, Optional
 import torch
 from torch.profiler import record_function
 
-from adflow_torch.ops import cuda_inviscid, cuda_rans
+from adflow_torch.ops import cuda_bc, cuda_inviscid, cuda_rans
 
 CAP = 1 << 20
 
@@ -81,6 +82,7 @@ def spans() -> List[Span]:
 def _counters(counts) -> Dict[str, int]:
     return {"host_syncs": host_syncs, "k1_launches": cuda_rans.LAUNCHES,
             "k2_launches": cuda_inviscid.LAUNCHES,
+            "bc_launches": cuda_bc.LAUNCHES,
             "res_evals": counts["res"] if counts is not None else 0}
 
 

@@ -4,16 +4,18 @@
     python3 chip_smoke.py
 
 Run from the root of the repository on a machine with a CUDA card and the
-CUDA toolkit. It builds the two kernels with nvcc, one process each, started
+CUDA toolkit. It builds the three kernels with nvcc, one process each, started
 together: the fused RANS-SA residual (K1, adflow_torch/csrc/rans_residual.cu,
-one pass that marches along i) and the central + JST inviscid residual (K2,
+one pass that marches along i), the central + JST inviscid residual (K2,
 adflow_torch/csrc/inviscid_residual.cu, one pass that marches along i as
-well). Then, each phase timed:
+well) and the physical-BC pass (adflow_torch/csrc/bc_ghost.cu, one launch
+a subface, with its tangent). Then, each phase timed:
   [1]-[8]  K1 against its plain version, two of its launches against each
            other (bitwise), and its gradient; the steady
            RANS-SA Runge-Kutta solve of the 1.05 M-cell wing O-mesh through
-           ``ADFLOW`` (a path of its own, K1 launches counted); K1's tile
-           plan, registers and shared bytes, its times and one RK cycle's
+           ``ADFLOW`` (a path of its own, K1 launches counted, each BC
+           pass one BC kernel launch a subface); K1's tile plan,
+           registers and shared bytes, its times and one RK cycle's
            breakdown;
   [9]-[11] K2 against its plain version, on an odd block with a segment
            that does not divide ni, and two of its launches against each
@@ -22,7 +24,9 @@ well). Then, each phase timed:
            through both kernels' autograd.Functions on the card; a small
            Euler ANK solve on the card against the CPU;
   [12]     the main path: the default ANK solve of the Euler wing at
-           256x64x64 through ``ADFLOW``, K2 launches counted per step;
+           256x64x64 through ``ADFLOW``, K2 launches counted per step, each
+           BC pass one BC kernel launch a subface and each jvp matvec's
+           pass one more;
   [13]     2 ANK steps of the RANS-SA wing at 64x24x16 through K1;
   [14]     K2's tile plan, registers and shared bytes, its times, one ANK
            step broken down and under torch.profiler;
@@ -122,6 +126,11 @@ well). Then, each phase timed:
            3 stacked RK steps of the viscous RANS-SA wing (K1 exactly 4 x 5
            a step); the small wing's stacked ANK step and the k-split
            residual, card against CPU. It runs right after [29].
+  [31]     the BC pass kernel on the main path's wing at 256x64x64, for 5
+           (Euler) and 6 (SA) channels: the pass and its jvp against the
+           plain pass in float64 on the same float32 inputs, two passes
+           bitwise equal; its registers, its times beside the byte bound
+           (the clone of the padded state). It runs right after [3].
 Any failed check raises, so the exit code is not 0. The last line is
 ``{"ok": true, "device": {...}}``; the line before it lists the kernels with
 their launches, errors and times (``ms`` by CUDA events around calls of the
@@ -464,28 +473,68 @@ def small_solve_parity():
 RK_SUMMARY = {}
 
 
+class BCPasses:
+    """Counts the BC passes of the halo fills while active
+    (``residual.apply_bcs`` swapped for a counting wrapper, restored on
+    exit), and the BC kernel's launches meanwhile."""
+
+    def __enter__(self):
+        from adflow_torch.ops import cuda_bc
+        from adflow_torch.physics import residual
+        fn = self.orig = residual.apply_bcs
+        self.n, self.launches0 = 0, cuda_bc.LAUNCHES
+
+        def counted(*a, **k):
+            self.n += 1
+            return fn(*a, **k)
+
+        residual.apply_bcs = counted
+        return self
+
+    def __exit__(self, *exc):
+        from adflow_torch.physics import residual
+        residual.apply_bcs = self.orig
+
+    @property
+    def launches(self):
+        from adflow_torch.ops import cuda_bc
+        return cuda_bc.LAUNCHES - self.launches0
+
+
+def n_physical(solver):
+    """The BC kernel's launches a pass of the solver's one block: one a
+    physical subface."""
+    from adflow_torch.physics.bc import physical_ops
+    (blk,) = solver.topo.blocks
+    return len(physical_ops(blk.bc_ops))
+
+
 def main_path():
     """The port's main path: ADFLOW on the full wing, 50 RK cycles, then
-    evalFunctions. Returns the solver and the K1 launches it made."""
+    evalFunctions. Returns the solver, the K1 launches it made and the BC
+    kernel's."""
     from adflow_torch.api.solver import ADFLOW
     from adflow_torch.core.refstate import AeroProblem
     from adflow_torch.meshgen.analytic import wing_omesh
-    from adflow_torch.ops import cuda_inviscid, cuda_rans
+    from adflow_torch.ops import cuda_bc, cuda_inviscid, cuda_rans
 
     mesh = wing_omesh(ni=FULL_DIMS[0], nj=FULL_DIMS[1], nk=FULL_DIMS[2],
                       viscous=True)
-    cuda_inviscid.LAUNCHES = cuda_rans.LAUNCHES = 0
+    cuda_inviscid.LAUNCHES = cuda_rans.LAUNCHES = cuda_bc.LAUNCHES = 0
     t0 = time.perf_counter()
     solver = ADFLOW(options=solver_options(N_CYCLES), mesh=mesh)
     ap = AeroProblem(**M6)
     solver.setAeroProblem(ap)
     torch.cuda.synchronize()
     t1 = time.perf_counter()
-    solver(ap)
-    torch.cuda.synchronize()
-    t2 = time.perf_counter()
-    funcs = solver.evalFunctions(ap, {})
+    with BCPasses() as passes:
+        solver(ap)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        solve_passes = passes.n
+        funcs = solver.evalFunctions(ap, {})
     launches, k2 = cuda_rans.LAUNCHES, cuda_inviscid.LAUNCHES
+    bc_launches, per_pass = cuda_bc.LAUNCHES, n_physical(solver)
 
     hist = solver.solve_info.history
     print(f"  {mesh.n_cells} cells, dtype {solver.dtype}, device "
@@ -498,14 +547,20 @@ def main_path():
     print(f"  cl {funcs['m6_cl']!r}, cd {funcs['m6_cd']!r}")
     print(f"  K1 launches {launches} (expected {RK_STAGES} per cycle per "
           f"block: {RK_STAGES * N_CYCLES})")
+    print(f"  BC passes {passes.n} ({solve_passes} in the solve, expected 12 "
+          f"a cycle: {12 * N_CYCLES}), BC kernel launches {bc_launches} "
+          f"(expected {per_pass} a pass: {per_pass * passes.n})")
     assert solver.dtype == torch.float32
     assert hist.shape == (N_CYCLES, 2) and np.all(np.isfinite(hist))
     assert np.isfinite(funcs["m6_cl"]) and np.isfinite(funcs["m6_cd"])
     assert launches == RK_STAGES * N_CYCLES and k2 == 0, (launches, k2)
+    assert solve_passes == 12 * N_CYCLES, solve_passes
+    assert bc_launches == passes.launches == per_pass * passes.n, \
+        (bc_launches, passes.n)
     RK_SUMMARY.update(ms=(t2 - t1) / N_CYCLES * 1e3,
                       drop=float((hist[-1, 0] / hist[0, 0])
                                  ** (1.0 / (N_CYCLES - 1))))
-    return solver, launches
+    return solver, launches, bc_launches
 
 
 def main_path_operands(solver, block=0):
@@ -767,26 +822,28 @@ def small_ank_parity(n_steps=3, options=None, ap_changes=None):
 
 def ank_main_path():
     """The port's main path: ADFLOW with default options on the full Euler
-    wing, ANK_STEPS ANK steps, then evalFunctions. Returns the solver and
-    the K2 launches it made."""
+    wing, ANK_STEPS ANK steps, then evalFunctions. Returns the solver, the
+    K2 launches it made and the BC kernel's."""
     from adflow_torch.api.solver import ADFLOW
     from adflow_torch.core.refstate import AeroProblem
     from adflow_torch.meshgen.analytic import wing_omesh
-    from adflow_torch.ops import cuda_inviscid, cuda_rans
+    from adflow_torch.ops import cuda_bc, cuda_inviscid, cuda_rans
 
     mesh = wing_omesh(ni=FULL_DIMS[0], nj=FULL_DIMS[1], nk=FULL_DIMS[2])
-    cuda_inviscid.LAUNCHES = cuda_rans.LAUNCHES = 0
+    cuda_inviscid.LAUNCHES = cuda_rans.LAUNCHES = cuda_bc.LAUNCHES = 0
     t0 = time.perf_counter()
     solver = ADFLOW(options=euler_options(ANK_STEPS), mesh=mesh)
     ap = AeroProblem(**EULER)
     solver.setAeroProblem(ap)
     torch.cuda.synchronize()
     t1 = time.perf_counter()
-    solver(ap)
-    torch.cuda.synchronize()
-    t2 = time.perf_counter()
-    funcs = solver.evalFunctions(ap, {})
+    with BCPasses() as passes:
+        solver(ap)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        funcs = solver.evalFunctions(ap, {})
     k2, k1 = cuda_inviscid.LAUNCHES, cuda_rans.LAUNCHES
+    bc_launches, per_pass = cuda_bc.LAUNCHES, n_physical(solver)
 
     info = solver.solve_info
     print(f"  {mesh.n_cells} cells, dtype {solver.dtype}, device "
@@ -800,13 +857,21 @@ def ank_main_path():
     print(f"  K2 launches {k2} (expected {expected}: 2 for the Newton "
           f"driver's free-stream and starting norms + the steps'), K1 "
           f"launches {k1}")
+    matvecs = sum(r.krylov_matvecs for r in info.steps)
+    bc_expected = per_pass * (passes.n + 2 * matvecs)
+    print(f"  BC passes {passes.n}, {2 * matvecs} of them in the jvp "
+          f"matvecs; BC kernel launches {bc_launches} (expected "
+          f"{bc_expected}: {per_pass} a pass and {per_pass} more a "
+          f"matvec's pass for the tangent)")
     assert solver.dtype == torch.float32
     assert len(info.steps) == ANK_STEPS and not info.failed
     assert np.all(np.isfinite(info.history))
     assert np.isfinite(funcs["m6e_cl"]) and np.isfinite(funcs["m6e_cd"])
     assert info.history[-1, 0] < info.total_r0, "residual did not fall"
     assert k2 == expected and k1 == 0, (k2, k1)
-    return solver, k2
+    assert bc_launches == passes.launches == bc_expected, \
+        (bc_launches, passes.n, matvecs)
+    return solver, k2, bc_launches
 
 
 def rans_ank_path():
@@ -1712,6 +1777,66 @@ def small_physics_parity():
                    ("alpha", "machGrid", "rotRate_z", "rotCenter_x"),
                    ADJ_EULER_RTOL)
     return k1, k2
+
+
+def bc_pass_checks(name):
+    """[31]: the BC pass kernel (``cuda_bc.fused_bc_pass``) and its jvp in
+    the state on the main path's wing at FULL_DIMS, for 5 (Euler) and 6
+    (SA) channels, each against the plain pass in float64 on the same
+    float32 inputs: every ghost within FULL_RTOL of its channel's largest
+    magnitude (the plain float32 pass's distance printed beside it); two
+    passes bitwise equal; the kernel's registers and its times (Euler, the
+    ANK path's; its jvp the matvec's). Returns its launches and times."""
+    from adflow_torch.ops import _nvcc, cuda_bc
+
+    n0 = cuda_bc.LAUNCHES
+    for line in _nvcc.ptxas_report(cuda_bc.SRC):
+        print(f"  {line}")
+    for nw in (6, 5):
+        w, m, ops, ref, winf = cuda_bc.sample_pass(FULL_DIMS, nw, "cuda:0")
+        gen = torch.Generator(device=w.device).manual_seed(nw)
+        v = torch.randn(w.shape, generator=gen, device=w.device)
+        m64 = m._replace(siE=m.siE.double(), sjE=m.sjE.double(),
+                         skE=m.skE.double())
+
+        def jvp(pass_fn, w, m, winf, v):
+            return torch.func.jvp(
+                lambda u: pass_fn(u, m, ops, ref, winf), (w,), (v,))[1]
+
+        got = cuda_bc.fused_bc_pass(w, m, ops, ref, winf)
+        again = cuda_bc.fused_bc_pass(w, m, ops, ref, winf)
+        tan = jvp(cuda_bc.fused_bc_pass, w, m, winf, v)
+        plain32 = cuda_bc.bc_pass_reference(w, m, ops, ref, winf)
+        exact = cuda_bc.bc_pass_reference(w.double(), m64, ops, ref,
+                                          winf.double())
+        exact_tan = jvp(cuda_bc.bc_pass_reference, w.double(), m64,
+                        winf.double(), v.double())
+        torch.cuda.synchronize()
+        rel, abs_err = rel_errors(exact, got)
+        rel_tan, _ = rel_errors(exact_tan, tan)
+        rel_plain, _ = rel_errors(exact, plain32)
+        same = bool(torch.equal(got, again))
+        print(f"  BC pass at {'x'.join(map(str, FULL_DIMS))}, nw {nw}: "
+              f"kernel vs float64 plain per-channel rel err "
+              f"{max(rel):.3e} (plain float32 {max(rel_plain):.3e}), max "
+              f"abs err {abs_err:.3e}; tangent {max(rel_tan):.3e} "
+              f"(tolerance {FULL_RTOL:g}); two passes bitwise equal {same}")
+        assert bool(torch.isfinite(got).all() and torch.isfinite(tan).all())
+        assert max(rel) < FULL_RTOL and max(rel_tan) < FULL_RTOL, \
+            (rel, rel_tan)
+        assert same, "BC kernel passes differ"
+    launches = cuda_bc.LAUNCHES - n0
+    # per pass: the clone and one launch a subface; the jvp clones both
+    times = kernel_times("BC pass", cuda_bc.fused_bc_pass,
+                         cuda_bc.bc_pass_reference, (w, m),
+                         (ops, ref, winf), cuda_bc.min_bytes(w), 0, name)
+    times["jvp_ms"] = time_ms(lambda: jvp(cuda_bc.fused_bc_pass, w, m,
+                                          winf, v))
+    times["plain_jvp_ms"] = time_ms(lambda: jvp(cuda_bc.bc_pass_reference,
+                                                w, m, winf, v))
+    print(f"  BC pass jvp {times['jvp_ms']:.4f} ms, plain jvp "
+          f"{times['plain_jvp_ms']:.4f} ms")
+    return launches, times
 
 
 def kernel_times(label, fused, plain, tensors, consts, n_bytes, n_flop,
@@ -3416,7 +3541,7 @@ def main() -> int:
         print("chip_smoke: no CUDA device; this script runs on the card",
               file=sys.stderr)
         return 1
-    from adflow_torch.ops import _nvcc, cuda_inviscid, cuda_rans
+    from adflow_torch.ops import _nvcc, cuda_bc, cuda_inviscid, cuda_rans
 
     t_start = time.perf_counter()
     card = card_line()
@@ -3425,8 +3550,9 @@ def main() -> int:
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, {name}")
     phase = Phases()
 
-    phase("[1] build both kernels, one nvcc each, in parallel")
-    for lib in _nvcc.build_all([cuda_rans.SRC, cuda_inviscid.SRC]):
+    phase("[1] build the three kernels, one nvcc each, in parallel")
+    for lib in _nvcc.build_all([cuda_rans.SRC, cuda_inviscid.SRC,
+                                cuda_bc.SRC]):
         print(f"  built {lib.relative_to(_nvcc.BUILD_DIR.parents[1])}")
 
     phase("[2] K1 against its plain version on small blocks; two launches "
@@ -3439,12 +3565,16 @@ def main() -> int:
     phase("[3] gradient through the kernel's autograd.Function")
     check_gradient(*cuda_rans.sample_operands((24, 12, 8), "cuda:0"))
 
+    phase("[31] the BC pass kernel and its jvp against the float64 plain "
+          f"pass on the {'x'.join(map(str, FULL_DIMS))} wing; its times")
+    bc_checks, bc_times = bc_pass_checks(name)
+
     phase("[4] small RK solve: card against CPU")
     small_solve_parity()
 
     phase("[5] RK path: ADFLOW RANS-SA RK solve of the "
           f"{'x'.join(map(str, FULL_DIMS))} wing")
-    solver, k1_rk = main_path()
+    solver, k1_rk, bc_rk = main_path()
 
     phase("[6] K1 against its plain version at the full size")
     ni, nj, nk = FULL_DIMS
@@ -3492,7 +3622,7 @@ def main() -> int:
 
     phase("[12] main path: ADFLOW default ANK solve of the Euler "
           f"{'x'.join(map(str, FULL_DIMS))} wing")
-    solver, k2_ank = ank_main_path()
+    solver, k2_ank, bc_ank = ank_main_path()
     tensors, consts = k2_operands(solver)
     k2_abs, k2_flux_rel = compare_k2_post_solve(tensors, consts)
 
@@ -3629,6 +3759,14 @@ def main() -> int:
                               "run_control_small_cases": k2_ctl},
          "max_abs_err": k2_abs, "max_rel_err": k2_flux_rel, **k2_times,
          "library_ms": None},
+        {"name": "fused_bc_pass", "route": "cuda",
+         "source": "adflow_torch/csrc/bc_ghost.cu", "replaces": "none",
+         "design": "one launch a subface, its tangent from the same source",
+         "launches": bc_checks + bc_rk + bc_ank,
+         "launches_by_path": {"bc_pass_checks_wing_256x64x64": bc_checks,
+                              "rk_rans_wing_256x64x64": bc_rk,
+                              "ank_euler_wing_256x64x64": bc_ank},
+         **bc_times, "library_ms": None},
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

@@ -18,7 +18,13 @@ on the CPU in float64, on the 16x8x8 wing:
 - an adjoint: its ``krylov.matvec`` spans number ``GmresResult.matvecs``,
   one ``adjoint.pc_build`` a solve;
 - the solve's states and ``SolveInfo`` bitwise equal with the profiler on
-  and off.
+  and off;
+- ``bc_launches``, the BC pass kernel's launches (run here by its CPU twin,
+  ``tests/torch_bc_twin.py``): 4 a ``halo.bc_pass`` on the wing
+  (one a physical subface), 8 under a jvp (the forward's and the
+  tangent's), 0 where autograd records; in an ANK solve and its adjoint,
+  every pass under ``newton.step`` launches and none under
+  ``adjoint.solve``.
 
 On a card (marker ``cuda``, skipped without one): under a CPU+CUDA
 profile, the spans and the device's events are on one clock: every K2
@@ -38,9 +44,12 @@ from torch.profiler import ProfilerActivity, profile
 
 from adflow_torch import ADFLOW, AeroProblem
 from adflow_torch.meshgen.analytic import wing_omesh
+from adflow_torch.ops import cuda_bc
+from adflow_torch.physics import bc
 from adflow_torch.physics.residual import fill_halos
 from adflow_torch.solvers.krylov import gmres
 from adflow_torch.utils import trace
+from torch_bc_twin import twin_launch
 
 WING = dict(ni=16, nj=8, nk=8)
 QUIET = {"printIterations": False, "printTiming": False}
@@ -269,6 +278,73 @@ def test_adjoint_matvecs_match_gmres():
     assert len(descendants(spans, solve, "krylov.iter")) == \
         s.adjoint_info.iters
     assert len(descendants(spans, solve, "adjoint.pc_build")) == 1
+
+
+def on_twin(monkeypatch, ref):
+    """Let the float64 CPU states take the BC kernel pass, run by its twin
+    (the kernel's operand checks, which take float32, left out)."""
+    monkeypatch.setattr(bc, "_kernel_state",
+                        lambda w: w.dtype == torch.float64)
+    monkeypatch.setattr(cuda_bc, "check_operands", lambda *a: None)
+    monkeypatch.setattr(cuda_bc, "_launch", twin_launch(ref))
+
+
+@pytest.mark.parametrize("mode,per_pass", [("pass", 4), ("jvp", 8),
+                                           ("vjp", 0)])
+def test_bc_launches_in_the_pass_spans(monkeypatch, mode, per_pass):
+    s, _, w0 = solver_and_start(ANK)
+    s.setStates(w0)
+    on_twin(monkeypatch, s.ref)
+    w_list = tuple(s.w_list)
+
+    def fill(*w_list):
+        return tuple(fill_halos(list(w_list), s.metrics_list, s.topo, s.ref,
+                                s.winf))
+    n0 = cuda_bc.LAUNCHES
+    with cpu_profile():
+        if mode == "pass":
+            fill(*w_list)
+        elif mode == "jvp":
+            torch.func.jvp(fill, w_list, tuple(map(torch.ones_like, w_list)))
+        else:
+            torch.func.vjp(fill, *w_list)
+    passes = [x for x in trace.spans() if x.name == "halo.bc_pass"]
+    assert [x.count("bc_launches") for x in passes] == [per_pass] * 2
+    assert cuda_bc.LAUNCHES - n0 == 2 * per_pass
+
+
+def test_bc_launches_in_the_solve_spans(monkeypatch):
+    """An ANK step and its adjoint with the kernel pass where it applies:
+    each BC pass under ``newton.step`` launches one a subface (the
+    matvec's jvp twice that); under ``adjoint.solve`` the recorded passes
+    of the vjp launch none, and only the transposed PC's build, whose fill
+    autograd does not record, launches one a subface."""
+    opts = dict(ANK, nCycles=1, adjointMaxIter=4, adjointSubspaceSize=4,
+                restartAdjoint=False)
+    s, ap, w0 = solver_and_start(opts)
+    on_twin(monkeypatch, s.ref)
+    with cpu_profile():
+        s.setStates(w0)
+        s(ap)
+        s.evalFunctionsSens(ap, {}, ["cl"])
+    spans = trace.spans()
+    (step,) = [x for x in spans if x.name == "newton.step"]
+    counts = collections.Counter()
+    for mv in descendants(spans, step, "krylov.matvec"):
+        counts.update(x.count("bc_launches")
+                      for x in descendants(spans, mv, "halo.bc_pass"))
+    assert set(counts) == {8}
+    counts = {x.count("bc_launches")
+              for x in descendants(spans, step, "halo.bc_pass")}
+    assert counts == {4, 8}
+    (solve,) = [x for x in spans if x.name == "adjoint.solve"]
+    (build,) = descendants(spans, solve, "adjoint.pc_build")
+    in_build = descendants(spans, build, "halo.bc_pass")
+    assert [x.count("bc_launches") for x in in_build] == [4, 4]
+    recorded = [x for x in descendants(spans, solve, "halo.bc_pass")
+                if x not in in_build]
+    assert recorded and {x.count("bc_launches") for x in recorded} == {0}
+    assert solve.count("bc_launches") == 8
 
 
 # -- the card -----------------------------------------------------------

@@ -24,6 +24,9 @@ prints:
   counts in the kept span above it, so a matvec holds its halo fills;
 - for a Newton solve, each ``newton.step`` span beside its
   ``StepRecord.seconds``;
+- the BC kernel's launches in each ``halo.bc_pass`` span
+  (``bc_launches``), tallied by the nearest of the cell's layer spans
+  above it;
 - the cell's per-layer metrics as the benchmark reads them from this
   unit.
 
@@ -55,6 +58,11 @@ SPLIT = {
     "rk": API + ("smoother.cycle", "halo.fill", "halo.bc_pass"),
     "adjoint": API + ("adjoint.solve", "adjoint.pc_build") + KRYLOV,
 }
+
+
+# the spans ``bc_launches`` tallies a BC pass by
+BC_PARENTS = API + ("smoother.cycle", "newton.step", "krylov.matvec",
+                    "adjoint.solve", "adjoint.pc_build")
 
 
 def merge(intervals):
@@ -185,6 +193,23 @@ def table(rows: dict, wall_ns: int) -> list:
             for n, (c, s, i) in sorted(rows.items(), key=lambda kv: -kv[1][2])]
 
 
+def bc_launches(spans, layers) -> dict:
+    """For each span name of ``layers``, how many ``halo.bc_pass`` spans
+    under it (the nearest above them) launched the BC kernel how many
+    times: {name: {launches: passes}}. Empty for a program without the
+    counter."""
+    by_id = {s.id: s for s in spans}
+    out = collections.defaultdict(collections.Counter)
+    for s in spans:
+        if s.name != "halo.bc_pass" or "bc_launches" not in s.enter:
+            continue
+        up = by_id.get(s.parent)
+        while up is not None and up.name not in layers:
+            up = by_id.get(up.parent)
+        out[up.name if up else "(no span)"][s.count("bc_launches")] += 1
+    return {k: dict(v) for k, v in out.items()}
+
+
 def report(cell, ctx, st, driver) -> dict:
     """Run a unit of the built cell under the profiler and join."""
     import torch
@@ -214,6 +239,7 @@ def report(cell, ctx, st, driver) -> dict:
         "idle_by_innermost_span": table(split(spans, busy, t0, t1,
                                               layers=layers), t1 - t0),
         "split": table(split(spans, busy, t0, t1, keep=layers), t1 - t0),
+        "bc_launches": bc_launches(spans, BC_PARENTS),
         "raw": [[s.name, s.start_ns - t0, s.end_ns - t0, s.id, s.parent,
                  s.count("host_syncs")] for s in spans],
     }
@@ -261,6 +287,8 @@ def print_report(out: dict):
         print(f"  newton.step {s['span_ms']:.2f} ms, StepRecord "
               f"{s['record_ms']:.2f} ms ({100 * s['rel']:+.3f}%), "
               f"{s['matvecs']} matvecs, {s['host_syncs']} host syncs")
+    print("  bc_launches by layer span, {launches: passes}:",
+          json.dumps(out["bc_launches"]))
     print("  metrics:", json.dumps(out["metrics"]))
 
 
