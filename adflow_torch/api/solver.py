@@ -219,6 +219,8 @@ class ADFLOW(OutputMixin):
         self.x_list = [torch.as_tensor(b.x, dtype=self.dtype,
                                        device=self.device)
                        for b in mesh.blocks]
+        # the multigrid levels of these coordinates (``_mg_levels``)
+        self._mg_cache = None
         # true ghost metrics at b2b faces (xhalo analogue, metrics.py)
         self.metrics_list = compute_metrics_conn(mesh.blocks, self.x_list)
         self._metrics_base = list(self.metrics_list)
@@ -510,9 +512,12 @@ class ADFLOW(OutputMixin):
                 monitor=monitor, deadline=deadline,
                 signal_check=signal_check, mixed_data=self._mixed_data())
         elif str(opt["MGCycle"]).lower() not in ("sg", "none", ""):
-            from adflow_torch.solvers.multigrid import solve_mg
+            from adflow_torch.solvers.multigrid import (parse_mg_cycle,
+                                                        solve_mg)
+            levels = self._mg_levels(
+                parse_mg_cycle(str(opt["MGCycle"]))[0])
             w_list, info = solve_mg(
-                self.w_list, self.mesh, self.x_list, self.topo, self.cfg,
+                self.w_list, levels, self.cfg,
                 self.ref, self.winf, mg_cycle=str(opt["MGCycle"]),
                 cfl=float(opt["CFL"]), n_cycles=int(opt["nCycles"]),
                 l2_conv=float(opt["L2Convergence"]),
@@ -787,12 +792,12 @@ class ADFLOW(OutputMixin):
         As in the JAX package, the coarse solves run the fine level's
         configuration (not the coarse-level scheme), so the residual
         kernels launch on the coarse meshes, and the levels are
-        ``build_mg_levels``' (mirrored ghost metrics, no wallDistCutoff)."""
+        ``_mg_levels``' (mirrored ghost metrics, no wallDistCutoff)."""
         lvl_opt = int(opt["MGStartLevel"])
         if lvl_opt == 1 or not getattr(self, "_fresh_state", False):
             return
         from adflow_torch.solvers.multigrid import (
-            build_mg_levels, parse_mg_cycle, prolong_correction)
+            parse_mg_cycle, prolong_correction)
         from adflow_torch.solvers.newton import solve_newton_driver
         from adflow_torch.solvers.smoothers import _with_interior
 
@@ -801,7 +806,7 @@ class ADFLOW(OutputMixin):
         if want < 2:
             return
         try:
-            levels = build_mg_levels(self.mesh, self.x_list, self.cfg, want)
+            levels = self._mg_levels(want)
         except ValueError:
             return
         if len(levels) < 2:
@@ -834,6 +839,26 @@ class ADFLOW(OutputMixin):
                        w_c[i][2:-2, 2:-2, 2:-2], fine.factors[i]))
                    for i, wf in enumerate(fresh(fine))]
         self.w_list = w_c
+
+    def _mg_levels(self, n_levels: int):
+        """The ``n_levels`` multigrid levels of the current coordinates
+        (``multigrid.build_mg_levels``), built at the first call and kept,
+        keyed by the dtype, the device and the level count, as the
+        reference builds its coarse levels once in preprocessing
+        (``createCoarseBlocks``). A change of the coordinates drops them
+        (``_drop_mg_levels``). As in the JAX package, level 0 is
+        built anew too, with per-block metrics and no wallDistCutoff."""
+        from adflow_torch.solvers.multigrid import build_mg_levels
+        key = (self.dtype, self.device, int(n_levels))
+        if self._mg_cache is None or self._mg_cache[0] != key:
+            self._mg_cache = None      # free the old levels first
+            self._mg_cache = (key, build_mg_levels(
+                self.mesh, self.x_list, self.cfg, int(n_levels)))
+        return self._mg_cache[1]
+
+    def _drop_mg_levels(self):
+        """The coordinates change: the kept multigrid levels are freed."""
+        self._mg_cache = None
 
     def addActuatorRegion(self, axis1, axis2, radius: float,
                           familyName: str = "actuator",
@@ -1436,6 +1461,7 @@ class ADFLOW(OutputMixin):
         reference's deferred ``_updateGeomInfo`` flag."""
         self._pending_surface = np.asarray(coords, float)
         self._geom_dirty = True
+        self._drop_mg_levels()
 
     def updateGeometryInfo(self):
         """Warp the volume mesh to the staged surface and rebuild the
@@ -1468,6 +1494,7 @@ class ADFLOW(OutputMixin):
         the aero problem again. As in the JAX package, that re-attachment
         resets the flow to the free stream unless the problem's state was
         stashed by a switch of problems."""
+        self._drop_mg_levels()
         self.metrics_list = compute_metrics_conn(self.mesh.blocks,
                                                  self.x_list)
         self._metrics_base = list(self.metrics_list)

@@ -11,6 +11,10 @@
 //   normal-corrected face gradients -> stress tensor and heat flux
 //   SA source (production, destruction, ft2, cb2) + first-order upwind
 //     advection + diffusion + non-conservative correction + row scale
+// and, instantiated with COARSE (the multigrid coarse levels' scheme, the
+// plain version's const_diss), a constant 2nd-difference dissipation vis2
+// with no pressure sensor and no 4th difference; all else as on the fine
+// level. The fine instantiation compiles to the same code as without it.
 //
 // Layout: channels last, as the JAX package and the port keep their arrays
 // (padded state w (ni+4, nj+4, nk+4, 6); siE (ni+3, nj+2, nk+2, 3), ...).
@@ -224,7 +228,9 @@ __device__ __forceinline__ void load_plane(float* dst,
 // derived fields of one extended cell
 // ---------------------------------------------------------------------------
 // Ext cell (I, J, K): its Cell c and its neighbours below and above along
-// i, j and k. Writes field f to d[f * ds].
+// i, j and k. Writes field f to d[f * ds]. COARSE: the coarse levels'
+// scheme, which reads no pressure sensor (its slot holds 0).
+template <bool COARSE>
 __device__ __forceinline__ void derived_cell(
     const Cell& c, const Cell& im, const Cell& ip, const Cell& jm,
     const Cell& jp, const Cell& km, const Cell& kp,
@@ -254,8 +260,10 @@ __device__ __forceinline__ void derived_cell(
   for (int a = 0; a < 3; ++a) {
     const Cell& lo = a == 0 ? im : a == 1 ? jm : km;
     const Cell& hi = a == 0 ? ip : a == 1 ? jp : kp;
-    const float sa = sens(lo.p, c.p, hi.p);
-    nu_s = (a == 0) ? sa : fmaxf(nu_s, sa);
+    if constexpr (!COARSE) {
+      const float sa = sens(lo.p, c.p, hi.p);
+      nu_s = (a == 0) ? sa : fmaxf(nu_s, sa);
+    }
 
     const float* Slo = sE[a] + 3 * g.face(a, I, J, K);
     const float* Shi = sE[a] + 3 * g.face(a, I + e3[a][0], J + e3[a][1],
@@ -301,6 +309,10 @@ struct FaceFlux {
 // Face along axis a between ext cells L and R = L + e_a: the four cells
 // LL, L, R, RR along a, the face vector S, its porosity, the derived fields
 // of L and R (field f at dL[f * ds], dR[f * ds]) and their cell centres.
+// COARSE: the coarse levels' dissipation, a constant 2nd difference vis2
+// (vis2Coarse) with no sensor and no 4th difference (the plain version's
+// const_diss, fluxes.F90 inviscidDissFluxScalarCoarse).
+template <bool COARSE>
 __device__ __forceinline__ FaceFlux face_flux(
     int a, const Cell& cLL, const Cell& cL, const Cell& cR, const Cell& cRR,
     const float* __restrict__ S, float por, const float* dL,
@@ -322,9 +334,15 @@ __device__ __forceinline__ FaceFlux face_flux(
   central[4] = 0.5f * ((cL.rhoE + cL.p) * qL + (cR.rhoE + cR.p) * qR);
 
   const float lam = 0.5f * (dL[(D_SRI + a) * ds] + dR[(D_SRI + a) * ds]);
-  const float e2 = vis2 * fmaxf(dL[D_SENS * ds], dR[D_SENS * ds]);
-  const float eps2 = e2 * por;
-  const float eps4 = fmaxf(0.0f, vis4 - e2) * por;
+  float eps2, eps4;
+  if constexpr (COARSE) {
+    eps2 = vis2 * por;
+    eps4 = 0.0f;
+  } else {
+    const float e2 = vis2 * fmaxf(dL[D_SENS * ds], dR[D_SENS * ds]);
+    eps2 = e2 * por;
+    eps4 = fmaxf(0.0f, vis4 - e2) * por;
+  }
   const float dLL[5] = {cLL.rho, cLL.mx, cLL.my, cLL.mz, cLL.rhoE + cLL.p};
   const float dL5[5] = {cL.rho, cL.mx, cL.my, cL.mz, cL.rhoE + cL.p};
   const float dR5[5] = {cR.rho, cR.mx, cR.my, cR.mz, cR.rhoE + cR.p};
@@ -488,6 +506,7 @@ __device__ __forceinline__ Cell read_cell(const float* b, int n) {
   return c;
 }
 
+template <bool COARSE>
 __global__ void __launch_bounds__(NT, 2) rans_residual_kernel(
     const float* __restrict__ W, const float* __restrict__ siE,
     const float* __restrict__ sjE, const float* __restrict__ skE,
@@ -524,7 +543,7 @@ __global__ void __launch_bounds__(NT, 2) rans_residual_kernel(
     const int J = j0 + jj, K = k0 + kk;
     const bool corner = (jj == 0 || jj == TJ + 1) && (kk == 0 || kk == TK + 1);
     if (it < DPLANE && !corner && J <= g.nj + 1 && K <= g.nk + 1)
-      derived_cell(cell(p, (jj + 1) * RK + kk + 1),
+      derived_cell<COARSE>(cell(p, (jj + 1) * RK + kk + 1),
                    cell(p - 1, (jj + 1) * RK + kk + 1),
                    cell(p + 1, (jj + 1) * RK + kk + 1),
                    cell(p, jj * RK + kk + 1), cell(p, (jj + 2) * RK + kk + 1),
@@ -590,7 +609,7 @@ __global__ void __launch_bounds__(NT, 2) rans_residual_kernel(
       const int step = jf ? RK : 1;
       const float* dL = d0 + (jf ? row * DK + cl + 1 : (row + 1) * DK + cl);
       const int JR = J + jf, KR = K + !jf;
-      const FaceFlux ff = face_flux(
+      const FaceFlux ff = face_flux<COARSE>(
           jf ? 1 : 2, cell(Q, P), cell(Q, P + step), cell(Q, P + 2 * step),
           cell(Q, P + 3 * step),
           jf ? sjE + 3 * g.face(1, Q - 1, JR, KR)
@@ -617,7 +636,7 @@ __global__ void __launch_bounds__(NT, 2) rans_residual_kernel(
     __syncthreads();
     if (!first || !col) continue;
     const Cell c = cell(Q, Pc);
-    const FaceFlux hi = face_flux(
+    const FaceFlux hi = face_flux<COARSE>(
         0, cell(Q - 1, Pc), c, cell(Q + 1, Pc), cell(Q + 2, Pc),
         siE + 3 * g.face(0, Q, J, K), porI[g.por(0, Q, J, K)], dc,
         dslot(Q + 1) + Dc, DPLANE, xc + 3 * g.ext(Q - 1, J, K),
@@ -649,29 +668,48 @@ __global__ void __launch_bounds__(NT, 2) rans_residual_kernel(
 // Launch the kernel on ``stream`` with the tile plan of
 // adflow_torch/ops/cuda_rans.py::k1_tile_plan: its tile (tj x tk), threads
 // and dynamic shared bytes must be this source's; the segment si and the
-// copy width (4 or 16 bytes) are the plan's. Returns cudaGetLastError()
-// (0 = ok).
+// copy width (4 or 16 bytes) are the plan's. ``coarse`` selects the coarse
+// levels' dissipation (the kernel instantiated with COARSE; the fine one is
+// the other instantiation, unchanged). Returns cudaGetLastError() (0 = ok).
+template <bool COARSE>
+static int launch(const float* w, const float* siE, const float* sjE,
+                  const float* skE, const float* vol, const float* xc,
+                  const float* dist, const float* porI, const float* porJ,
+                  const float* porK, float* out, const Grid& g, int si,
+                  int copy_width, float vis2, float vis4, float expo,
+                  float mu_inf, float s_suth, int use_ft2, float turb_scale,
+                  cudaStream_t s) {
+  constexpr int bytes = SMEM_FLOATS * 4;
+  cudaError_t err = cudaFuncSetAttribute(
+      rans_residual_kernel<COARSE>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid((g.nk + TK - 1) / TK, (g.nj + TJ - 1) / TJ,
+                  (g.ni + si - 1) / si);
+  rans_residual_kernel<COARSE><<<grid, NT, bytes, s>>>(
+      w, siE, sjE, skE, vol, xc, dist, porI, porJ, porK, out, g, si,
+      copy_width == 16, vis2, vis4, expo, mu_inf, s_suth, use_ft2,
+      turb_scale);
+  return (int)cudaGetLastError();
+}
+
 extern "C" int rans_residual_launch(
     const float* w, const float* siE, const float* sjE, const float* skE,
     const float* vol, const float* xc, const float* dist, const float* porI,
     const float* porJ, const float* porK, float* out, int ni, int nj, int nk,
     int tj, int tk, int threads, int si, int copy_width, int smem_bytes,
     float vis2, float vis4, float expo, float mu_inf, float s_suth,
-    int use_ft2, float turb_scale, void* stream) {
+    int use_ft2, float turb_scale, int coarse, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const Grid g{ni, nj, nk};
-  constexpr int bytes = SMEM_FLOATS * 4;
-  if (tj != TJ || tk != TK || threads != NT || smem_bytes != bytes ||
+  if (tj != TJ || tk != TK || threads != NT || smem_bytes != SMEM_FLOATS * 4 ||
       si < 1 || (copy_width != 4 && copy_width != 16))
     return (int)cudaErrorInvalidValue;
-  cudaError_t err = cudaFuncSetAttribute(
-      rans_residual_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      bytes);
-  if (err != cudaSuccess) return (int)err;
-  const dim3 grid((nk + TK - 1) / TK, (nj + TJ - 1) / TJ, (ni + si - 1) / si);
-  rans_residual_kernel<<<grid, NT, bytes, s>>>(
-      w, siE, sjE, skE, vol, xc, dist, porI, porJ, porK, out, g, si,
-      copy_width == 16, vis2, vis4, expo, mu_inf, s_suth, use_ft2,
-      turb_scale);
-  return (int)cudaGetLastError();
+  return coarse
+      ? launch<true>(w, siE, sjE, skE, vol, xc, dist, porI, porJ, porK, out,
+                     g, si, copy_width, vis2, vis4, expo, mu_inf, s_suth,
+                     use_ft2, turb_scale, s)
+      : launch<false>(w, siE, sjE, skE, vol, xc, dist, porI, porJ, porK, out,
+                      g, si, copy_width, vis2, vis4, expo, mu_inf, s_suth,
+                      use_ft2, turb_scale, s);
 }

@@ -111,10 +111,11 @@ def _lib():
     fn.restype = ctypes.c_int
     # w6 .. porK, out; ni, nj, nk, tj, tk, threads, si, copy_width,
     # smem_bytes; vis2, vis4, expo, mu_inf, s_suth; use_ft2, turb_scale,
-    # stream
+    # coarse, stream
     fn.argtypes = ([ctypes.c_void_p] * 11 + [ctypes.c_int] * 9
-                   + [ctypes.c_float] * 5 + [ctypes.c_int, ctypes.c_float,
-                                             ctypes.c_void_p])
+                   + [ctypes.c_float] * 5
+                   + [ctypes.c_int, ctypes.c_float, ctypes.c_int,
+                      ctypes.c_void_p])
     return lib
 
 
@@ -158,9 +159,10 @@ def check_operands(tensors):
 
 
 def _launch(tensors, vis2, vis4, expo, mu_inf, t_inf_dim, use_ft2,
-            turb_scale, plan=None):
+            turb_scale, coarse=False, plan=None):
     """Check the operands and launch the kernel with ``plan`` (default
-    ``k1_tile_plan``); returns (ni, nj, nk, 6)."""
+    ``k1_tile_plan``), its coarse-level instantiation with ``coarse``;
+    returns (ni, nj, nk, 6)."""
     global LAUNCHES
     w6 = tensors[0]
     if not w6.is_cuda:
@@ -180,7 +182,7 @@ def _launch(tensors, vis2, vis4, expo, mu_inf, t_inf_dim, use_ft2,
             plan.smem_bytes, float(vis2),
             float(vis4), float(expo), float(mu_inf),
             float(_s_suth(t_inf_dim)), int(bool(use_ft2)), float(turb_scale),
-            stream)
+            int(bool(coarse)), stream)
     if err != 0:
         raise RuntimeError(f"rans_residual_launch failed: CUDA error {err}")
     LAUNCHES += 1
@@ -194,10 +196,12 @@ def _s_suth(t_inf_dim):
 
 def rans_residual_reference(w6, siE, sjE, skE, vol, xc, dist, porI, porJ,
                             porK, vis2, vis4, expo, mu_inf, t_inf_dim,
-                            use_ft2, turb_scale):
+                            use_ft2, turb_scale, coarse=False):
     """The plain PyTorch version: inviscid + viscous residual concatenated
     with the SA residual (counterpart of pallas_rans.py:605 _jnp_reference).
-    No in-place writes, so torch.func transforms apply."""
+    ``coarse``: the multigrid coarse levels' dissipation (``const_diss``: a
+    constant 2nd difference vis2, no sensor, no 4th difference). No
+    in-place writes, so torch.func transforms apply."""
     from adflow_torch.geom.metrics import BlockMetrics
     from adflow_torch.physics.fluxes import inviscid_residual
     from adflow_torch.physics.residual import ProblemConfig
@@ -211,7 +215,8 @@ def rans_residual_reference(w6, siE, sjE, skE, vol, xc, dist, porI, porJ,
                         diss_exponent=expo, turbulence_model="sa",
                         turb_res_scale=turb_scale, use_ft2=use_ft2)
     p = pressure(w6)
-    r = inviscid_residual(w6, p, m, vis2, vis4, expo, por=(porI, porJ, porK))
+    r = inviscid_residual(w6, p, m, vis2, vis4, expo, por=(porI, porJ, porK),
+                          const_diss=coarse)
     r = r + viscous_residual(w6, p, m, cfg, ref)
     rt = sa_residual(w6, p, m, cfg, ref, dist)
     return torch.cat([r, rt], dim=-1)
@@ -222,7 +227,7 @@ class _FusedRans(torch.autograd.Function):
 
     ``apply(*tensors, mu_inf, t_inf_dim, consts)``: the ten operands, the
     two flow constants, each a float or a 0-d tensor, and (vis2, vis4,
-    expo, use_ft2, turb_scale). A flow constant given as a tensor is an
+    expo, use_ft2, turb_scale, coarse). A flow constant given as a tensor is an
     input of its own, so that derivatives reach it (the adjoint makes both
     depend on the design variables); the launch reads its value, which is
     legal here since a forward sees its inputs unwrapped under
@@ -230,9 +235,9 @@ class _FusedRans(torch.autograd.Function):
 
     @staticmethod
     def forward(*args):
-        vis2, vis4, expo, use_ft2, turb_scale = args[12]
+        vis2, vis4, expo, use_ft2, turb_scale, coarse = args[12]
         return _launch(args[:10], vis2, vis4, expo, float(args[10]),
-                       float(args[11]), use_ft2, turb_scale)
+                       float(args[11]), use_ft2, turb_scale, coarse)
 
     @staticmethod
     def setup_context(ctx, inputs, output):
@@ -263,28 +268,30 @@ class _FusedRans(torch.autograd.Function):
 
 def _plain_of_saved(ctx):
     """The plain version as a function of the saved tensor inputs."""
-    vis2, vis4, expo, use_ft2, turb_scale = ctx.consts
+    vis2, vis4, expo, use_ft2, turb_scale, coarse = ctx.consts
 
     def plain(*tensors):
         it = iter(tensors)
         a = [next(it) if v is None else v for v in ctx.args]
         return rans_residual_reference(*a[:10], vis2, vis4, expo, a[10],
-                                       a[11], use_ft2, turb_scale)
+                                       a[11], use_ft2, turb_scale, coarse)
 
     return plain
 
 
 def fused_rans_residual(w6, siE, sjE, skE, vol, xc, dist, porI, porJ, porK,
                         vis2, vis4, expo, mu_inf, t_inf_dim, use_ft2,
-                        turb_scale):
+                        turb_scale, coarse=False):
     """All six RANS-SA residual channels of one halo-filled block,
     (ni, nj, nk, 6). Same signature and output as the JAX package's
-    ``fused_rans_residual`` (pallas_rans.py:635). ``mu_inf`` and
-    ``t_inf_dim`` may be 0-d tensors, and derivatives then reach them."""
+    ``fused_rans_residual`` (pallas_rans.py:635), plus ``coarse``: the
+    multigrid coarse levels' scheme (constant 2nd-difference dissipation
+    vis2, no sensor, no 4th difference). ``mu_inf`` and ``t_inf_dim`` may
+    be 0-d tensors, and derivatives then reach them."""
     mu_inf, t_inf_dim = (a if torch.is_tensor(a) else float(a)
                          for a in (mu_inf, t_inf_dim))
     consts = (float(vis2), float(vis4), float(expo), bool(use_ft2),
-              float(turb_scale))
+              float(turb_scale), bool(coarse))
     tensors = (w6, siE, sjE, skE, vol, xc, dist, porI, porJ, porK)
     if w6.is_cuda:
         return _FusedRans.apply(*tensors, mu_inf, t_inf_dim, consts)

@@ -187,10 +187,12 @@ def _kernel_applies(w, metrics, cfg, extras, por) -> bool:
     tensor and first-order turbulence advection: the JAX branch ignores
     ``turbulenceOrder`` (its kernel advects nuTilde to first order) while
     its plain path honours it, so the port keeps second-order runs on the
-    plain path."""
+    plain path. Unlike the JAX branch, a multigrid coarse level's central
+    scalar scheme (``coarse_level``: constant dissipation) takes K1 too,
+    through its coarse instantiation."""
     return (cfg.use_kernels and cfg.rans and cfg.turbulence_model == "sa"
             and not second_order(cfg)
-            and not cfg.use_rotation_sa and not cfg.coarse_level
+            and not cfg.use_rotation_sa
             and not cfg.use_qcr
             and cfg.discretization.startswith("central")
             and "matrix" not in cfg.discretization
@@ -226,7 +228,8 @@ def block_residual(w, metrics: BlockMetrics, cfg: ProblemConfig,
             w, metrics.siE, metrics.sjE, metrics.skE, metrics.vol,
             metrics.xc_ext, extras["walldist"], por[0], por[1], por[2],
             cfg.vis2, cfg.vis4, cfg.diss_exponent,
-            ref.mu_inf, ref.t_inf_dim, cfg.use_ft2, cfg.turb_scales[0])
+            ref.mu_inf, ref.t_inf_dim, cfg.use_ft2, cfg.turb_scales[0],
+            coarse=cfg.coarse_level)
 
     p = pressure(w)
     if cfg.discretization.startswith("upwind"):

@@ -10,10 +10,12 @@ Reference analogues:
   ``transferToFineGrid`` (:326).
 
 Nonlinear FAS: on each coarse level R_c(v) + f_c = 0 is smoothed with
-f_c = I_h^H (R_f + f_f) - R_c(I_h^H w_f). The levels are built once per
-solve; a cycle is the recursion over them in Python, and the residual
-history is copied to the host once per chunk of cycles, as the JAX
-package's ``lax.scan`` chunks are.
+f_c = I_h^H (R_f + f_f) - R_c(I_h^H w_f). ``ADFLOW`` builds the levels once
+for its coordinates and keeps them (``ADFLOW._mg_levels``, as the
+reference's ``createCoarseBlocks`` runs once in preprocessing); a cycle is
+the recursion over them in Python, and the residual history is copied to
+the host once per chunk of cycles, as the JAX package's ``lax.scan``
+chunks are.
 
 As in the JAX package, every level (level 0 too) is rebuilt from the mesh:
 metrics by ``compute_metrics`` per block (mirrored ghost metrics at
@@ -23,7 +25,18 @@ different state than the single-grid solve of the same case. The
 prolongation is piecewise constant (the reference's is trilinear). The fine
 level runs the solver's configuration, so the residual kernels launch
 there; the coarse levels run the constant-coefficient coarse scheme
-(``coarse_level``), which neither kernel takes.
+(``coarse_level``), which K1 takes through its coarse instantiation where
+the fine scheme is the central scalar one (K2 takes no coarse level). The
+smoothing of every stage is the smoothing kernel on the card
+(``smoothers.residual_averaging``).
+
+Spans (``utils/trace.py``): ``mg.cycle`` around each top-level cycle;
+``mg.level.<n>`` around the work of one visit to level n, with the coarse
+residual of the restricted state, level n + 1's evaluation, in a
+``mg.level.<n+1>`` span of its own, so that every residual evaluation sits
+under the level whose dims it runs on; ``mg.transfer`` around the
+restriction of the state and the residual, the forcing's assembly, and the
+prolongation with its clamped add.
 """
 
 from __future__ import annotations
@@ -44,6 +57,7 @@ from adflow_torch.physics.thermo import pressure
 from adflow_torch.physics.timestep import local_timestep
 from adflow_torch.solvers.smoothers import (
     RK_COEFFS, _with_interior, residual_averaging, residual_norms)
+from adflow_torch.utils import trace
 
 
 def coarsen_factors(dims) -> tuple:
@@ -203,13 +217,14 @@ def rk_smooth(w_list, level: MGLevel, cfg, ref, winf, cfl, f_list=None,
     optional implicit residual smoothing. Returns (w_list, the first
     stage's forced residual)."""
     r_first = None
+    # the row scale's copy to the device once a call, not once an iteration
+    rsv = cfg.row_scale(w_list[0].dtype, w_list[0].device)
     for _ in range(n_iter):
         w0 = fill_halos(w_list, level.metrics_list, level.topo, ref, winf)
         dt_list = [local_timestep(w, pressure(w), m, cfl, cfg, ref)
                    / m.vol[2:-2, 2:-2, 2:-2]
                    for w, m in zip(w0, level.metrics_list)]
         wk = w0
-        rsv = cfg.row_scale(w0[0].dtype, w0[0].device)
         for alpha in coeffs:
             r_list = _forced_residual(wk, level, cfg, ref, f_list)
             if r_first is None:
@@ -247,12 +262,17 @@ def _level_cfg(cfg: ProblemConfig, lev: int,
     reference's coarse-grid discretization, residuals.F90:70-77, options
     vis2Coarse and coarseDiscretization: an upwind fine scheme drops to the
     central scheme with constant dissipation unless coarseDiscretization
-    says 'upwind')."""
+    says 'upwind'). Only the coarse levels of a central scalar fine scheme
+    take the residual kernel; those of the matrix and upwind fine schemes
+    stay on the plain path."""
     if lev == 0:
         return cfg
     disc = (coarse_disc or "central plus scalar dissipation").lower()
-    return dataclasses.replace(cfg, vis2=vis2_coarse, coarse_level=True,
-                               discretization=disc)
+    fine = cfg.discretization
+    return dataclasses.replace(
+        cfg, vis2=vis2_coarse, coarse_level=True, discretization=disc,
+        use_kernels=(cfg.use_kernels and fine.startswith("central")
+                     and "matrix" not in fine))
 
 
 def _clamped_add(w, cor, max_rel: float = 0.2):
@@ -288,43 +308,52 @@ def fas_cycle(w_list, levels: List[MGLevel], cfg, ref, winf, cfl,
         cfl_l = (cfl if cfl_coarse is None else cfl_coarse) \
             * CFL_COARSE_FACTOR
     if lev == len(levels) - 1:
-        return rk_smooth(w_list, level, cfg_l, ref, winf, cfl_l, f_list,
-                         n_iter=n_coarsest, irs_eps=irs_eps)
+        with trace.span(f"mg.level.{lev}"):
+            return rk_smooth(w_list, level, cfg_l, ref, winf, cfl_l, f_list,
+                             n_iter=n_coarsest, irs_eps=irs_eps)
 
-    # pre-smooth
-    w_list, r_first = rk_smooth(w_list, level, cfg_l, ref, winf, cfl_l,
-                                f_list, n_iter=n_pre, irs_eps=irs_eps)
+    with trace.span(f"mg.level.{lev}"):
+        # pre-smooth
+        w_list, r_first = rk_smooth(w_list, level, cfg_l, ref, winf, cfl_l,
+                                    f_list, n_iter=n_pre, irs_eps=irs_eps)
 
-    # the fine forced residual at the smoothed state
-    wf = fill_halos(w_list, level.metrics_list, level.topo, ref, winf)
-    r_f = _forced_residual(wf, level, cfg_l, ref, f_list)
+        # the fine forced residual at the smoothed state
+        wf = fill_halos(w_list, level.metrics_list, level.topo, ref, winf)
+        r_f = _forced_residual(wf, level, cfg_l, ref, f_list)
 
-    # restrict the state and build the FAS forcing
-    coarse = levels[lev + 1]
-    wc0 = [restrict_state(w, level.vols[i], coarse.vols[i],
-                          level.factors[i])
-           for i, w in enumerate(wf)]
-    wc0f = fill_halos(wc0, coarse.metrics_list, coarse.topo, ref, winf)
-    r_c0 = _forced_residual(wc0f, coarse,
-                            _level_cfg(cfg, lev + 1, vis2_coarse,
-                                       coarse_disc), ref, None)
-    f_c = [restrict_residual(rf, level.factors[i]) - rc
-           for i, (rf, rc) in enumerate(zip(r_f, r_c0))]
+        # restrict the state and the residual
+        coarse = levels[lev + 1]
+        with trace.span("mg.transfer"):
+            wc0 = [restrict_state(w, level.vols[i], coarse.vols[i],
+                                  level.factors[i])
+                   for i, w in enumerate(wf)]
+            r_fc = [restrict_residual(rf, level.factors[i])
+                    for i, rf in enumerate(r_f)]
+        # the coarse residual of the restricted state: level lev + 1's work
+        with trace.span(f"mg.level.{lev + 1}"):
+            wc0f = fill_halos(wc0, coarse.metrics_list, coarse.topo, ref,
+                              winf)
+            r_c0 = _forced_residual(wc0f, coarse,
+                                    _level_cfg(cfg, lev + 1, vis2_coarse,
+                                               coarse_disc), ref, None)
+        with trace.span("mg.transfer"):
+            f_c = [a - b for a, b in zip(r_fc, r_c0)]
 
-    # the coarse solve (W-cycle: two recursive visits)
-    wc = wc0f
-    for _ in range(2 if cycle == "w" else 1):
-        wc, _ = fas_cycle(wc, levels, cfg, ref, winf, cfl, lev + 1, f_c,
-                          cycle, n_pre, n_post, n_coarsest, damp,
-                          irs_eps, cfl_coarse, vis2_coarse, coarse_disc)
+        # the coarse solve (W-cycle: two recursive visits)
+        wc = wc0f
+        for _ in range(2 if cycle == "w" else 1):
+            wc, _ = fas_cycle(wc, levels, cfg, ref, winf, cfl, lev + 1, f_c,
+                              cycle, n_pre, n_post, n_coarsest, damp,
+                              irs_eps, cfl_coarse, vis2_coarse, coarse_disc)
 
-    # prolong the correction (damped, physicality-clamped), post-smooth
-    new = [_clamped_add(w, damp * prolong_correction(
-               wc[i][2:-2, 2:-2, 2:-2] - wc0[i][2:-2, 2:-2, 2:-2],
-               level.factors[i]))
-           for i, w in enumerate(w_list)]
-    w_list, _ = rk_smooth(new, level, cfg_l, ref, winf, cfl_l, f_list,
-                          n_iter=n_post, irs_eps=irs_eps)
+        # prolong the correction (damped, physicality-clamped), post-smooth
+        with trace.span("mg.transfer"):
+            new = [_clamped_add(w, damp * prolong_correction(
+                       wc[i][2:-2, 2:-2, 2:-2] - wc0[i][2:-2, 2:-2, 2:-2],
+                       level.factors[i]))
+                   for i, w in enumerate(w_list)]
+        w_list, _ = rk_smooth(new, level, cfg_l, ref, winf, cfl_l, f_list,
+                              n_iter=n_post, irs_eps=irs_eps)
     return w_list, r_first
 
 
@@ -336,7 +365,7 @@ def parse_mg_cycle(spec: str):
     return int(s[:-1]), s[-1]
 
 
-def solve_mg(w_list, mesh: MultiBlockMesh, x_list, topo, cfg, ref, winf,
+def solve_mg(w_list, levels: List[MGLevel], cfg, ref, winf,
              mg_cycle: str = "3w", cfl: float = 1.5, n_cycles: int = 500,
              l2_conv: float = 1e-8, l2_conv_rel: float = 1e-16,
              monitor=None, chunk: int = 5,
@@ -345,9 +374,8 @@ def solve_mg(w_list, mesh: MultiBlockMesh, x_list, topo, cfg, ref, winf,
              deadline=None, vis2_coarse: float = VIS2_COARSE,
              coarse_disc: str = None):
     """Multigrid-cycle driver to steady state (solvers.F90 solveState, its
-    multigrid branch). The levels are built from ``mesh`` and ``x_list``
-    (whose dtype and device they take); ``topo`` is not used, as in the
-    JAX package.
+    multigrid branch) over ``levels`` (``build_mg_levels``'; ``mg_cycle``
+    gives the cycle's type).
 
     n_pre/n_post: nMGFine/nMGCoarse smoothing sweeps; res_averaging and
     smooth_param: implicit residual smoothing (reference resAveraging /
@@ -358,8 +386,7 @@ def solve_mg(w_list, mesh: MultiBlockMesh, x_list, topo, cfg, ref, winf,
     Returns (w_list, SolveInfo)."""
     from adflow_torch.solvers.steady import SolveInfo
 
-    n_levels, ctype = parse_mg_cycle(mg_cycle)
-    levels = build_mg_levels(mesh, x_list, cfg, n_levels)
+    ctype = parse_mg_cycle(mg_cycle)[1]
     irs_eps = (0.0 if str(res_averaging).lower() == "never"
                else max(float(smooth_param) - 1.0, 0.0))
 
@@ -370,14 +397,16 @@ def solve_mg(w_list, mesh: MultiBlockMesh, x_list, topo, cfg, ref, winf,
     while it < n_cycles:
         rows = []
         for _ in range(chunk):
-            w_list, r = fas_cycle(w_list, levels, cfg, ref, winf, cfl,
-                                  cycle=ctype, irs_eps=irs_eps,
-                                  n_pre=n_pre, n_post=n_post,
-                                  cfl_coarse=cfl_coarse,
-                                  vis2_coarse=vis2_coarse,
-                                  coarse_disc=coarse_disc)
+            with trace.span("mg.cycle"):
+                w_list, r = fas_cycle(w_list, levels, cfg, ref, winf, cfl,
+                                      cycle=ctype, irs_eps=irs_eps,
+                                      n_pre=n_pre, n_post=n_post,
+                                      cfl_coarse=cfl_coarse,
+                                      vis2_coarse=vis2_coarse,
+                                      coarse_disc=coarse_disc)
             rows.append(torch.stack(residual_norms(r)))
         hist = torch.stack(rows).double().cpu().numpy()
+        trace.host_sync()
         hist_all.append(hist)
         it += hist.shape[0]
         if r0 is None:

@@ -8,52 +8,55 @@
   smoothers.F90:383,425): one implicit update through the three-axis line
   preconditioner of solvers/linpc.py, as the JAX package runs it;
 - implicit residual averaging (residuals.F90:1785), which multigrid's
-  smoother applies at every stage.
+  smoother applies at every stage: the smoothing kernel
+  (``ops/cuda_irs.py``) on float32 CUDA blocks, else the plain sweeps.
 """
 
 from __future__ import annotations
 
 from typing import Sequence
 
-import numpy as np
 import torch
 
+from adflow_torch.ops import cuda_irs
 from adflow_torch.physics.residual import (
     MeshTopology, ProblemConfig, block_residual, fill_halos)
 from adflow_torch.physics.thermo import pressure
 from adflow_torch.physics.timestep import local_timestep
+from adflow_torch.utils import trace
 
 RK_COEFFS = (0.25, 1.0 / 6.0, 0.375, 0.5, 1.0)  # JST 5-stage (smoothers.F90)
 
 
-def _averaging_factors(n: int, eps: float):
-    """The forward-elimination factors (g, denom, cp) of the constant
-    tridiagonal (-eps, 1 + 2 eps, -eps) of length n, its end rows
-    (1 + eps) and no coupling past the ends, as ``dadi.tridiag_factor``
-    computes them: host (numpy, float64) work, since the coefficients are
-    the same for every line."""
-    lo = np.full(n, -eps)
-    up = np.full(n, -eps)
-    dg = np.full(n, 1.0 + 2.0 * eps)
-    lo[0] = up[-1] = 0.0
-    dg[0] = dg[-1] = 1.0 + eps
-    g, den, cp = np.empty(n), np.empty(n), np.empty(n)
-    cp_prev = 0.0
-    for c in range(n):
-        den[c] = dg[c] - lo[c] * cp_prev
-        g[c] = lo[c] / den[c]
-        cp[c] = cp_prev = up[c] / den[c]
-    return g, den, cp
+def _irs_kernel_applies(r) -> bool:
+    """Whether the smoothing of ``r`` is what the smoothing kernel computes
+    (``ops/cuda_irs.py``): a float32 (n0, n1, n2, nv) block on CUDA with nv
+    of ``cuda_irs.NV``, autograd not recording through it and no
+    ``torch.func`` level around it (the kernel has no derivative rule)."""
+    return (r.is_cuda and r.dtype == torch.float32 and r.dim() == 4
+            and r.shape[-1] in cuda_irs.NV
+            and not (torch.is_grad_enabled() and r.requires_grad)
+            and not torch._C._functorch.is_functorch_wrapped_tensor(r))
 
 
+@trace.spanned("smoother.irs")
 def residual_averaging(r, eps: float):
     """Implicit residual smoothing: (I - eps d^2)^-1 r per direction
     (reference: residualAveraging, residuals.F90:1785), which extends the
     RK stability region so multigrid can run a higher CFL on stretched
-    meshes. r: (ni, nj, nk, nv); a constant coefficient eps. The JAX
-    package runs a Thomas recurrence over full coefficient arrays; here the
-    line's factors are computed once on the host (they are the same for
-    every line), and a solve is one multiply-add per cell along the line
+    meshes. r: (ni, nj, nk, nv); a constant coefficient eps. The smoothing
+    kernel, one launch an axis, where ``_irs_kernel_applies``; else the
+    plain sweeps (``plain_residual_averaging``)."""
+    if _irs_kernel_applies(r):
+        return cuda_irs.smooth(r, eps)
+    return plain_residual_averaging(r, eps)
+
+
+def plain_residual_averaging(r, eps: float):
+    """The plain smoothing. The JAX package runs a Thomas recurrence over
+    full coefficient arrays; here the line's factors are computed once
+    (``cuda_irs.line_factors``: they are the same for every line, and kept
+    on the device), and a solve is one multiply-add per cell along the line
     in each direction, which changes the result by round-off only."""
     from adflow_torch.solvers.dadi import tridiag_solve_factored
     for axis in range(3):
@@ -61,10 +64,10 @@ def residual_averaging(r, eps: float):
         if n < 3:
             continue
         shape = (n,) + (1,) * (r.dim() - 2)
-        factors = [torch.as_tensor(a, dtype=r.dtype, device=r.device)
-                   .reshape(shape).expand((n,) + tuple(
-                       d for i, d in enumerate(r.shape[:-1]) if i != axis))
-                   for a in _averaging_factors(n, eps)]
+        lines = tuple(d for i, d in enumerate(r.shape[:-1]) if i != axis)
+        factors = [a.reshape(shape).expand((n,) + lines)
+                   for a in cuda_irs.line_factors(n, float(eps), r.dtype,
+                                                  r.device)]
         rm = torch.movedim(r, axis, 0)
         r = torch.movedim(tridiag_solve_factored(factors, rm), 0, axis)
     return r

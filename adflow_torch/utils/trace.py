@@ -2,7 +2,8 @@
 
 A span is one piece of work at a layer boundary: an API call, a Newton
 step, a GMRES iteration, a matvec, a PC build or apply, a halo fill, a BC
-pass. Each records its name, its start and end from ``time.time_ns()``
+pass, a multigrid cycle, the work of one visit to a level, a transfer
+between levels, a residual smoothing. Each records its name, its start and end from ``time.time_ns()``
 (the clock of ``torch.profiler``'s events, so that spans and device
 events can be joined), its own id, its parent's id, the id of its root
 API call, and the counters below at its entry and exit.
@@ -22,8 +23,9 @@ thread that runs the solve.
 
 Counters always count: ``host_syncs``, every device-to-host copy of the
 solve loops (``host_sync()`` where the copy is made), beside the kernels'
-``LAUNCHES`` (K1's, K2's and the BC pass's, ``bc_launches``) and the
-Newton functions' exact residual evaluations.
+``LAUNCHES`` (K1's, K2's, the BC pass's, ``bc_launches``, and the
+residual smoothing's, ``irs_launches``) and the Newton functions' exact
+residual evaluations.
 """
 
 from __future__ import annotations
@@ -35,7 +37,7 @@ from typing import Dict, List, NamedTuple, Optional
 import torch
 from torch.profiler import record_function
 
-from adflow_torch.ops import cuda_bc, cuda_inviscid, cuda_rans
+from adflow_torch.ops import cuda_bc, cuda_inviscid, cuda_irs, cuda_rans
 
 CAP = 1 << 20
 
@@ -83,6 +85,7 @@ def _counters(counts) -> Dict[str, int]:
     return {"host_syncs": host_syncs, "k1_launches": cuda_rans.LAUNCHES,
             "k2_launches": cuda_inviscid.LAUNCHES,
             "bc_launches": cuda_bc.LAUNCHES,
+            "irs_launches": cuda_irs.LAUNCHES,
             "res_evals": counts["res"] if counts is not None else 0}
 
 

@@ -4,12 +4,14 @@
     python3 chip_smoke.py
 
 Run from the root of the repository on a machine with a CUDA card and the
-CUDA toolkit. It builds the three kernels with nvcc, one process each, started
+CUDA toolkit. It builds the four kernels with nvcc, one process each, started
 together: the fused RANS-SA residual (K1, adflow_torch/csrc/rans_residual.cu,
-one pass that marches along i), the central + JST inviscid residual (K2,
-adflow_torch/csrc/inviscid_residual.cu, one pass that marches along i as
-well) and the physical-BC pass (adflow_torch/csrc/bc_ghost.cu, one launch
-a subface, with its tangent). Then, each phase timed:
+one pass that marches along i, with a coarse-level instantiation), the
+central + JST inviscid residual (K2, adflow_torch/csrc/inviscid_residual.cu,
+one pass that marches along i as well), the physical-BC pass
+(adflow_torch/csrc/bc_ghost.cu, one launch a subface, with its tangent) and
+the implicit residual smoothing (adflow_torch/csrc/residual_averaging.cu,
+one launch an axis, a thread a line). Then, each phase timed:
   [1]-[8]  K1 against its plain version, two of its launches against each
            other (bitwise), and its gradient; the steady
            RANS-SA Runge-Kutta solve of the 1.05 M-cell wing O-mesh through
@@ -71,9 +73,12 @@ a subface, with its tangent). Then, each phase timed:
            rotRate, rotCenter and machGrid on the Euler wing;
   [22]     the other solvers at full width: the full-multigrid start and
            5 '3w' FAS cycles of the RK path's 256x64x64 RANS-SA wing
-           (K1 exactly on the fine level's evaluations and the start's
-           coarse solves, K2 never), one cycle profiled; then the DADI
-           smoother on the same wing, one K1 launch an iteration;
+           (K1 exactly on every level's evaluations, 116 a cycle by the
+           benchmark's rule ``benchmark/drivers/mg.py``, counted level by
+           level and instantiation, and the start's coarse solves, K2
+           never; the smoothing kernel 3 launches a stage), one cycle
+           profiled; then the DADI smoother on the same wing, one K1
+           launch an iteration;
   [23]     the multigrid (AMG) preconditioner on the main path's Euler
            wing: 2 ANK steps (K2 exactly as in [12]), its build and apply
            timed, the peak device memory, and evalFunctionsSens(cl) with
@@ -131,6 +136,16 @@ a subface, with its tangent). Then, each phase timed:
            plain pass in float64 on the same float32 inputs, two passes
            bitwise equal; its registers, its times beside the byte bound
            (the clone of the padded state). It runs right after [3].
+  [32]     the multigrid levels' kernels at the three levels of the
+           256x64x64 wing (256x64x64, 128x32x32, 64x16x16), 6 channels:
+           K1's coarse instantiation against the plain coarse residual in
+           float64 on the same float32 inputs (each channel within 2e-5
+           of its scale, or twice the plain float32 version's distance),
+           two launches bitwise equal; the smoothing kernel along the
+           three axes against the float64 plain sweeps (1e-6), 3 launches
+           a call; each timed beside its byte bound and its plain
+           version (``adflow_torch/ops/mg_timing.py``). It runs right
+           after [31].
 Any failed check raises, so the exit code is not 0. The last line is
 ``{"ok": true, "device": {...}}``; the line before it lists the kernels with
 their launches, errors and times (``ms`` by CUDA events around calls of the
@@ -1181,8 +1196,9 @@ def launches():
 
 
 def zero_launches():
-    from adflow_torch.ops import cuda_inviscid, cuda_rans
-    cuda_inviscid.LAUNCHES = cuda_rans.LAUNCHES = 0
+    """K1's, K2's and the smoothing kernel's counters set to 0."""
+    from adflow_torch.ops import cuda_inviscid, cuda_irs, cuda_rans
+    cuda_inviscid.LAUNCHES = cuda_rans.LAUNCHES = cuda_irs.LAUNCHES = 0
 
 
 def matrix_path(scalar_pc_ms):
@@ -1839,6 +1855,25 @@ def bc_pass_checks(name):
     return launches, times
 
 
+def mg_kernel_checks():
+    """[32]: K1's coarse instantiation and the smoothing kernel at the
+    three levels' dims (``mg_timing.LEVELS``) against their float64 plain
+    versions, timed. Returns (K1 launches, smoothing launches, the
+    smoothing's readings by level, K1 coarse's readings by level)."""
+    from adflow_torch.ops import _nvcc, cuda_irs, cuda_rans, mg_timing
+
+    for line in _nvcc.ptxas_report(cuda_irs.SRC):
+        print(f"  {line}")
+    zero_launches()
+    device = torch.device("cuda", 0)
+    k1_times, irs_times = {}, {}
+    for dims in mg_timing.LEVELS:
+        key = "x".join(map(str, dims))
+        k1_times[key] = mg_timing.k1_coarse(dims, device)
+        irs_times[key] = mg_timing.smoothing(dims, device)
+    return cuda_rans.LAUNCHES, cuda_irs.LAUNCHES, irs_times, k1_times
+
+
 def kernel_times(label, fused, plain, tensors, consts, n_bytes, n_flop,
                  name):
     """Kernel and plain-version times (CUDA events, median of 20) and the
@@ -1901,12 +1936,44 @@ def cycle_breakdown(solver):
 # unsteady, time spectral)
 # ---------------------------------------------------------------------------
 
-def mg_cycle_evals(opts):
-    """Fine-level residual evaluations of one FAS cycle: the pre- and
-    post-smoothing RK stages and the forced residual before restriction
-    (the coarse levels run the coarse-level scheme, which no kernel
-    takes)."""
-    return RK_STAGES * (int(opts["nMGFine"]) + int(opts["nMGCoarse"])) + 1
+# [22]'s seconds a '3w' cycle on the H100 when the coarse levels ran the
+# plain residual and the plain smoothing sweeps
+MG_CYCLE_S_PLAIN = 3.45
+
+
+def mg_by_level(opts, rk_stages_only=False):
+    """Residual evaluations, each a K1 launch (or with ``rk_stages_only``
+    the RK stages, each a smoothing), of one FAS cycle of ``opts`` on each
+    level, finest first: the benchmark's launch rule
+    (``benchmark/drivers/mg.py``), with the program's coarsest
+    iterations."""
+    from benchmark import harness
+    rule = harness.driver_module("mg")
+    return rule.evaluations_by_level(opts, rule.n_coarsest(),
+                                     rk_stages_only)
+
+
+class K1ByLevel:
+    """Counts K1's launches by block dims and instantiation, wrapping
+    ``cuda_rans.fused_rans_residual`` (which ``physics/residual.py`` looks
+    up at each call) while in use."""
+
+    def __enter__(self):
+        from adflow_torch.ops import cuda_rans
+        self.mod, self.orig, self.counts = cuda_rans, \
+            cuda_rans.fused_rans_residual, {}
+
+        def counted(*args, coarse=False, **kw):
+            key = ("x".join(str(n - 4) for n in args[0].shape[:3]),
+                   "coarse" if coarse else "fine")
+            self.counts[key] = self.counts.get(key, 0) + 1
+            return self.orig(*args, coarse=coarse, **kw)
+
+        cuda_rans.fused_rans_residual = counted
+        return self
+
+    def __exit__(self, *exc):
+        self.mod.fused_rans_residual = self.orig
 
 
 def fmg_evals(infos):
@@ -1923,14 +1990,18 @@ def drop_per_cycle(hist):
 
 def mg_path(rk_summary):
     """[22]: the full-multigrid start and MG_CYCLES '3w' cycles of the RK
-    path's RANS-SA wing through ADFLOW: K1 exactly on the fine level's
-    evaluations and the start's coarse solves (which run the fine
-    configuration), K2 never; one cycle under the profiler; then the DADI
-    smoother on the same wing, one K1 launch an iteration. Returns the K1
-    launches of the multigrid run and of the DADI run."""
+    path's RANS-SA wing through ADFLOW: K1 exactly on every level's
+    evaluations (the coarse levels through its coarse instantiation) and
+    the start's coarse solves (which run the fine configuration), K2
+    never, the smoothing kernel 3 launches a stage; one cycle under the
+    profiler; then the DADI smoother on the same wing, one K1 launch an
+    iteration. Returns the K1 launches of the multigrid run by level and
+    instantiation ({"<dims>_<fine|coarse>": launches}), its smoothing
+    launches and the K1 launches of the DADI run."""
     from adflow_torch.api.solver import ADFLOW
     from adflow_torch.core.refstate import AeroProblem
     from adflow_torch.meshgen.analytic import wing_omesh
+    from adflow_torch.ops import cuda_irs
     from adflow_torch.solvers import multigrid as mg
 
     mesh = wing_omesh(ni=FULL_DIMS[0], nj=FULL_DIMS[1], nk=FULL_DIMS[2],
@@ -1953,17 +2024,21 @@ def mg_path(rk_summary):
     solver._fmg_start = timed_start
     torch.cuda.synchronize()
     zero_launches()
-    t1 = time.perf_counter()
-    solver(ap)
-    torch.cuda.synchronize()
-    t2 = time.perf_counter()
+    with K1ByLevel() as by_level:
+        t1 = time.perf_counter()
+        solver(ap)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
     k1, k2 = launches()
+    irs = cuda_irs.LAUNCHES
     funcs = solver.evalFunctions(ap, {})
     info, fmg = solver.solve_info, solver.fmg_info
     hist = info.history
     opts = solver.options
+    evals, stages = mg_by_level(opts), mg_by_level(opts, True)
+    # the start solves the coarsest level first, then each finer one
     levels = " and ".join(
-        f"{'x'.join(str(d // 2 ** (len(fmg) - i)) for d in FULL_DIMS)}: "
+        f"{'x'.join(str(d // 2 ** (len(evals) - 1 - i)) for d in FULL_DIMS)}: "
         f"{f.iterations} RK iterations, R {f.total_r0:.4e} -> "
         f"{f.total_r_final:.4e}{' (failed)' if f.failed else ''}"
         for i, f in enumerate(fmg))
@@ -1974,18 +2049,34 @@ def mg_path(rk_summary):
         print(f"  cycle {it + 1:3d}: resrho {hist[it, 0]:.6e} resturb "
               f"{hist[it, 1]:.6e}")
     print(f"  {info.iterations} W-cycles in {t2 - t1 - start['s']:.3f} s: "
-          f"{cyc_s * 1e3:.3f} ms per cycle, residual drop "
+          f"{cyc_s * 1e3:.3f} ms per cycle ({MG_CYCLE_S_PLAIN} s with the "
+          f"coarse levels plain), residual drop "
           f"{drop_per_cycle(hist):.4f} per cycle ([5]'s RK: "
           f"{rk_summary['ms']:.3f} ms per cycle, drop "
           f"{rk_summary['drop']:.4f} per cycle)")
     print(f"  cl {funcs['m6_cl']!r}, cd {funcs['m6_cd']!r}")
-    per_cycle = mg_cycle_evals(opts)
+    per_cycle = sum(evals)
     expected = fmg_evals(fmg) + per_cycle * info.iterations
+    irs_expected = 3 * sum(stages) * info.iterations
+    # the cycles' launches by level (the coarse instantiation below the
+    # fine level), the start's at its levels' dims with the fine one
+    dims = ["x".join(str(d // 2 ** lev) for d in FULL_DIMS)
+            for lev in range(len(evals))]
+    want_by_level = {(dims[lev], "coarse" if lev else "fine"):
+                     n * info.iterations for lev, n in enumerate(evals)}
+    for i, f in enumerate(fmg):
+        key = (dims[len(evals) - 1 - i], "fine")
+        want_by_level[key] = want_by_level.get(key, 0) + fmg_evals([f])
     print(f"  K1 launches {k1} (expected {expected}: the start's "
           f"{fmg_evals(fmg)} = sum over its coarse levels of 2 + "
-          f"{RK_STAGES} x RK iterations, + {per_cycle} fine-level "
-          f"evaluations a cycle = {RK_STAGES} x (nMGFine + nMGCoarse) + 1), "
-          f"K2 launches {k2} (expected 0)")
+          f"{RK_STAGES} x RK iterations, + {per_cycle} evaluations a cycle "
+          f"on the levels {evals}, RK stages {stages} and the forced "
+          f"and restricted residuals), K2 launches {k2} (expected 0); "
+          f"smoothing launches {irs} (expected {irs_expected}: 3 a stage)")
+    for key in sorted(set(by_level.counts) | set(want_by_level)):
+        print(f"  K1 at {key[0]}, {key[1]} instantiation: "
+              f"{by_level.counts.get(key, 0)} launches (expected "
+              f"{want_by_level.get(key, 0)})")
     # the start solves the coarsest level, then the next, and keeps the
     # free stream once a level fails
     assert solver.dtype == torch.float32 and len(fmg) in (1, 2)
@@ -1993,12 +2084,15 @@ def mg_path(rk_summary):
     assert hist.shape == (MG_CYCLES, 2) and np.all(np.isfinite(hist))
     assert np.isfinite(funcs["m6_cl"]) and np.isfinite(funcs["m6_cd"])
     assert k1 == expected and k2 == 0, (k1, expected, k2)
+    assert by_level.counts == want_by_level, (by_level.counts,
+                                              want_by_level)
+    assert irs == irs_expected, (irs, irs_expected)
 
-    levels_ = mg.build_mg_levels(solver.mesh, solver.x_list, solver.cfg, 3)
-    irs = max(float(opts["smoothParameter"]) - 1.0, 0.0)
+    levels_ = solver._mg_levels(3)
+    irs_eps = max(float(opts["smoothParameter"]) - 1.0, 0.0)
     profile_device(lambda: mg.fas_cycle(
         solver.w_list, levels_, solver.cfg, solver.ref, solver.winf,
-        float(opts["CFL"]), cycle="w", irs_eps=irs,
+        float(opts["CFL"]), cycle="w", irs_eps=irs_eps,
         cfl_coarse=float(opts["CFLCoarse"]),
         vis2_coarse=float(opts["vis2Coarse"]),
         coarse_disc=str(opts["coarseDiscretization"])),
@@ -2024,7 +2118,8 @@ def mg_path(rk_summary):
           f"iteration), K2 {k2_dadi}")
     assert np.all(np.isfinite(info.history))
     assert k1_dadi == info.iterations and k2_dadi == 0, (k1_dadi, k2_dadi)
-    return k1, k1_dadi
+    return ({f"{d}_{kind}": n for (d, kind), n in by_level.counts.items()},
+            irs, k1_dadi)
 
 
 def amg_path(scalar_pc_ms):
@@ -2220,8 +2315,10 @@ def hist_rel(a, b):
 
 def small_solvers_parity():
     """[25]: the slice's small cases on the card (f32) against the CPU
-    (f64), exact launch counts on the card. Returns (K1, K2) launches."""
+    (f64), exact launch counts on the card. Returns (K1, K2, smoothing)
+    launches."""
     from adflow_torch.meshgen.analytic import wing_omesh
+    from adflow_torch.ops import cuda_irs
 
     def euler_wing():
         return wing_omesh(ni=16, nj=8, nk=8)
@@ -2243,8 +2340,8 @@ def small_solvers_parity():
     opts = dict(solver_options(SMALL_MG_CYCLES), **SMALL_MG_OPTS)
     cpu, card, (k1, k2), _ = pair("mg", rans_wing, M6, opts, perturb=False)
     err = hist_rel(card.solve_info.history, cpu.solve_info.history)
-    expected = (fmg_evals(card.fmg_info)
-                + mg_cycle_evals(card.options) * card.solve_info.iterations)
+    expected = (fmg_evals(card.fmg_info) + sum(mg_by_level(card.options))
+                * card.solve_info.iterations)
     print(f"  '2w' multigrid, RANS-SA wing 16x8x8, {SMALL_MG_CYCLES} cycles "
           f"after the full-multigrid start (coarse solve "
           f"{'failed, free stream kept' if card.fmg_info[0].failed else 'converged'}"
@@ -2255,6 +2352,12 @@ def small_solvers_parity():
     assert np.all(np.isfinite(card.solve_info.history))
     assert err < SMALL_HIST_RTOL and (k1, k2) == (expected, 0), (k1, k2)
     k1_all += k1
+    irs_small = cuda_irs.LAUNCHES
+    irs_cycles = (3 * sum(mg_by_level(card.options, True))
+                  * card.solve_info.iterations)
+    print(f"  smoothing launches {irs_small} (the cycles' {irs_cycles}: 3 "
+          f"a stage; the rest the start's)")
+    assert irs_small >= irs_cycles, (irs_small, irs_cycles)
 
     # the DADI smoother on the Euler wing
     opts = dict(euler_options(1), smoother="DADI", useANKSolver=False)
@@ -2332,7 +2435,7 @@ def small_solvers_parity():
     assert err < SMALL_HIST_RTOL and (k1, k2) == (0, expected), (k1, k2)
     assert all(np.isfinite(v) for v in fg.values())
     k2_all += k2
-    return k1_all, k2_all
+    return k1_all, k2_all, irs_small
 
 
 # ---------------------------------------------------------------------------
@@ -3497,12 +3600,12 @@ def dist_path(solver):
 
 
 def solver_slice(phase, scalar_pc_ms):
-    """[22]-[25]; returns the K1 and K2 launches of their main paths, by
-    path."""
+    """[22]-[25]; returns the K1, K2 and smoothing launches of their main
+    paths, by path (K1's multigrid run by level and instantiation)."""
     phase(f"[22] the slice at full width: the full-multigrid start and "
           f"{MG_CYCLES} '3w' cycles of the {'x'.join(map(str, FULL_DIMS))} "
           f"RANS-SA wing, then the DADI smoother")
-    k1_mg, k1_dadi = mg_path(RK_SUMMARY)
+    k1_mg, irs_mg, k1_dadi = mg_path(RK_SUMMARY)
     phase(f"[23] the AMG preconditioner at full width: {AMG_STEPS} ANK steps "
           f"and the adjoint of cl on the {'x'.join(map(str, FULL_DIMS))} "
           f"Euler wing")
@@ -3512,14 +3615,16 @@ def solver_slice(phase, scalar_pc_ms):
     k2_unsteady = unsteady_path()
     phase("[25] small cases, card against CPU: multigrid and its start, "
           "DADI, the AMG ANK step and adjoint, BDF2, RK4, time spectral")
-    k1_small, k2_small = small_solvers_parity()
-    return ({"mg_rans_wing_256x64x64": k1_mg,
+    k1_small, k2_small, irs_small = small_solvers_parity()
+    return ({**{f"mg_rans_wing_{k}": n for k, n in k1_mg.items()},
              "dadi_rans_wing_256x64x64": k1_dadi,
              "solvers_small_cases": k1_small},
             {"amg_ank_euler_wing_256x64x64": k2_amg,
              "amg_adjoint_euler_wing_256x64x64": k2_amg_adj,
              "unsteady_ts_euler_wing_256x64x64": k2_unsteady,
-             "solvers_small_cases": k2_small})
+             "solvers_small_cases": k2_small},
+            {"mg_rans_wing_256x64x64": irs_mg,
+             "solvers_small_cases": irs_small})
 
 
 class Phases:
@@ -3541,7 +3646,8 @@ def main() -> int:
         print("chip_smoke: no CUDA device; this script runs on the card",
               file=sys.stderr)
         return 1
-    from adflow_torch.ops import _nvcc, cuda_bc, cuda_inviscid, cuda_rans
+    from adflow_torch.ops import (_nvcc, cuda_bc, cuda_inviscid, cuda_irs,
+                                  cuda_rans, mg_timing)
 
     t_start = time.perf_counter()
     card = card_line()
@@ -3550,9 +3656,9 @@ def main() -> int:
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, {name}")
     phase = Phases()
 
-    phase("[1] build the three kernels, one nvcc each, in parallel")
+    phase("[1] build the four kernels, one nvcc each, in parallel")
     for lib in _nvcc.build_all([cuda_rans.SRC, cuda_inviscid.SRC,
-                                cuda_bc.SRC]):
+                                cuda_bc.SRC, cuda_irs.SRC]):
         print(f"  built {lib.relative_to(_nvcc.BUILD_DIR.parents[1])}")
 
     phase("[2] K1 against its plain version on small blocks; two launches "
@@ -3568,6 +3674,12 @@ def main() -> int:
     phase("[31] the BC pass kernel and its jvp against the float64 plain "
           f"pass on the {'x'.join(map(str, FULL_DIMS))} wing; its times")
     bc_checks, bc_times = bc_pass_checks(name)
+
+    phase("[32] the multigrid levels' kernels at "
+          f"{', '.join('x'.join(map(str, d)) for d in mg_timing.LEVELS)}: K1's "
+          "coarse instantiation and the residual smoothing against their "
+          "float64 plain versions; their times")
+    k1_mg_checks, irs_checks, irs_times, k1_coarse_times = mg_kernel_checks()
 
     phase("[4] small RK solve: card against CPU")
     small_solve_parity()
@@ -3700,7 +3812,7 @@ def main() -> int:
           "functions, grid motion, the low-speed preconditioner, actuator "
           "sources, the grid-motion adjoint")
     k1_phys, k2_phys = small_physics_parity()
-    k1_new, k2_new = solver_slice(phase, scalar_pc_ms)
+    k1_new, k2_new, irs_new = solver_slice(phase, scalar_pc_ms)
     phase("[26] overset at full width: the viscous NACA 0012 O-mesh at "
           f"{'x'.join(map(str, (OVS_NEAR['ni'], OVS_NEAR['nj'], OVS_NEAR['nk'])))}"
           " in its generated background, RANS-SA: ANK steps, the shape "
@@ -3726,8 +3838,10 @@ def main() -> int:
          "replaces": "adflow_tpu/ops/pallas_rans.py:58",
          "design": "one pass, i-march",
          "launches": (k1_rk + k1_ank + k1_adj + k1_matrix + k1_small
-                      + k1_plate + k1_phys + sum(k1_new.values())),
+                      + k1_plate + k1_phys + sum(k1_new.values())
+                      + k1_mg_checks),
          "launches_by_path": {"rk_rans_wing_256x64x64": k1_rk,
+                              "coarse_checks_mg_levels": k1_mg_checks,
                               "ank_rans_wing_64x24x16": k1_ank,
                               "adjoint_rans_wing_16x8x8": k1_adj,
                               "matrix_euler_wing_256x64x64": k1_matrix,
@@ -3737,7 +3851,7 @@ def main() -> int:
                               "physics_small_cases": k1_phys, **k1_new},
          "max_abs_err": max_abs, "max_rel_err": flux_rel,
          "max_rel_err_of_residual": max_rel, **k1_times,
-         "library_ms": None},
+         "coarse_by_level": k1_coarse_times, "library_ms": None},
         {"name": "fused_inviscid_residual", "route": "cuda",
          "source": "adflow_torch/csrc/inviscid_residual.cu",
          "replaces": "adflow_tpu/ops/pallas_residual.py:45",
@@ -3767,6 +3881,16 @@ def main() -> int:
                               "rk_rans_wing_256x64x64": bc_rk,
                               "ank_euler_wing_256x64x64": bc_ank},
          **bc_times, "library_ms": None},
+        {"name": "residual_averaging", "route": "cuda",
+         "source": "adflow_torch/csrc/residual_averaging.cu",
+         "replaces": "none",
+         "design": "one launch an axis, a thread a line and its channels",
+         "launches": irs_checks + sum(irs_new.values()),
+         "launches_by_path": {"checks_mg_levels": irs_checks, **irs_new},
+         "max_rel_err": max(t["rel_err"] for t in irs_times.values()),
+         **{k: irs_times["x".join(map(str, FULL_DIMS))][k]
+            for k in ("ms", "plain_ms", "bound_ms")},
+         "by_level": irs_times, "library_ms": None},
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

@@ -94,7 +94,7 @@ def test_autograd_function_derivatives(monkeypatch):
 
     def fused(w):
         return cuda_rans._FusedRans.apply(w, *t[1:], consts[3], consts[4],
-                                          consts[:3] + consts[5:])
+                                          consts[:3] + consts[5:] + (False,))
 
     def plain(w):
         return cuda_rans.rans_residual_reference(w, *t[1:], *consts)
@@ -150,7 +150,7 @@ def test_flow_constant_derivatives_through_function(monkeypatch):
 
     def fused(*a):
         return cuda_rans._FusedRans.apply(*a[:10], a[13], a[14],
-                                          a[10:13] + a[15:])
+                                          a[10:13] + a[15:] + (False,))
 
     (jf, vf), (jp, vp) = _flow_constant_derivatives(fused, tensors, consts)
     for a, b in zip(jf + list(vf), jp + list(vp)):

@@ -27,6 +27,11 @@ prints:
 - the BC kernel's launches in each ``halo.bc_pass`` span
   (``bc_launches``), tallied by the nearest of the cell's layer spans
   above it;
+- for a multigrid cell, each level's own part of the cycles (its
+  ``mg.level.<n>`` spans less the coarser levels' and the transfers
+  inside them): its time, K1's and the smoothing kernel's launches
+  (``k1_launches``, ``irs_launches``) and the device operations that
+  started in it, by name;
 - the cell's per-layer metrics as the benchmark reads them from this
   unit.
 
@@ -57,6 +62,8 @@ SPLIT = {
     "ank": API + ("newton.step", "newton.pc_build") + KRYLOV,
     "rk": API + ("smoother.cycle", "halo.fill", "halo.bc_pass"),
     "adjoint": API + ("adjoint.solve", "adjoint.pc_build") + KRYLOV,
+    "fas": API + ("mg.cycle", "mg.transfer", "smoother.irs", "halo.fill",
+                  "halo.bc_pass") + tuple(f"mg.level.{n}" for n in range(8)),
 }
 
 
@@ -210,6 +217,57 @@ def bc_launches(spans, layers) -> dict:
     return {k: dict(v) for k, v in out.items()}
 
 
+def mg_levels(spans, events) -> dict:
+    """For each multigrid level, its own part of the unit (the
+    ``mg.level.<n>`` spans less the level and transfer spans inside them):
+    {level: {own_ms, k1_launches, irs_launches, device_ops, top_ops}},
+    the device operations counted by the start of each inside the own
+    part (a launch's operation runs after its launch, so this is near,
+    not exact, where the card queues work). Empty without such spans."""
+    keep = {s.name for s in spans
+            if s.name.startswith("mg.level.") or s.name == "mg.transfer"}
+    if not keep:
+        return {}
+    by_id = {s.id: s for s in spans}
+    own = self_pieces(spans, keep)
+    pieces = []
+    for sid, ps in own.items():
+        s = by_id[sid]
+        if s.name.startswith("mg.level."):
+            pieces += [(a, b, int(s.name.rsplit(".", 1)[1])) for a, b in ps]
+    pieces.sort()
+    starts = [p[0] for p in pieces]
+    out = {}
+    for sid, ps in own.items():
+        s = by_id[sid]
+        if not s.name.startswith("mg.level."):
+            continue
+        lev = int(s.name.rsplit(".", 1)[1])
+        row = out.setdefault(lev, {"own_ms": 0.0, "k1_launches": 0,
+                                   "irs_launches": 0, "device_ops": 0,
+                                   "ops": collections.Counter()})
+        row["own_ms"] += sum(b - a for a, b in ps) * 1e-6
+        k1, irs = s.count("k1_launches"), s.count("irs_launches")
+        for c in spans:
+            p = by_id.get(c.parent)
+            while p is not None and p.name not in keep:
+                p = by_id.get(p.parent)
+            if p is not None and p.id == sid and c.name in keep:
+                k1 -= c.count("k1_launches")
+                irs -= c.count("irs_launches")
+        row["k1_launches"] += k1
+        row["irs_launches"] += irs
+    for name, a, _ in events:
+        i = bisect.bisect_right(starts, a) - 1
+        if i >= 0 and pieces[i][0] <= a < pieces[i][1]:
+            row = out[pieces[i][2]]
+            row["device_ops"] += 1
+            row["ops"][name[:60]] += 1
+    for row in out.values():
+        row["top_ops"] = row.pop("ops").most_common(8)
+    return dict(sorted(out.items()))
+
+
 def report(cell, ctx, st, driver) -> dict:
     """Run a unit of the built cell under the profiler and join."""
     import torch
@@ -240,6 +298,10 @@ def report(cell, ctx, st, driver) -> dict:
                                               layers=layers), t1 - t0),
         "split": table(split(spans, busy, t0, t1, keep=layers), t1 - t0),
         "bc_launches": bc_launches(spans, BC_PARENTS),
+        "mg_levels": mg_levels(spans, [
+            (ev.name(), ev.start_ns(), ev.start_ns() + ev.duration_ns())
+            for ev in prof.profiler.kineto_results.events()
+            if ev.device_type() == torch.autograd.DeviceType.CUDA]),
         "raw": [[s.name, s.start_ns - t0, s.end_ns - t0, s.id, s.parent,
                  s.count("host_syncs")] for s in spans],
     }
@@ -289,6 +351,11 @@ def print_report(out: dict):
               f"{s['matvecs']} matvecs, {s['host_syncs']} host syncs")
     print("  bc_launches by layer span, {launches: passes}:",
           json.dumps(out["bc_launches"]))
+    for lev, row in out["mg_levels"].items():
+        print(f"  mg level {lev}: own {row['own_ms']:.1f} ms, K1 "
+              f"{row['k1_launches']}, smoothing {row['irs_launches']} "
+              f"launches, {row['device_ops']} device ops; top "
+              f"{json.dumps(row['top_ops'])}")
     print("  metrics:", json.dumps(out["metrics"]))
 
 
