@@ -55,6 +55,7 @@ from adflow_torch.physics.residual import (
     MeshTopology, ProblemConfig, block_residual, build_topology, fill_halos)
 from adflow_torch.physics.thermo import pressure
 from adflow_torch.physics.timestep import local_timestep
+from adflow_torch.solvers import rk_graph
 from adflow_torch.solvers.smoothers import (
     RK_COEFFS, _with_interior, residual_averaging, residual_norms)
 from adflow_torch.utils import trace
@@ -210,36 +211,70 @@ def _forced_residual(w_list, level: MGLevel, cfg, ref, f_list):
     return r_list
 
 
+def _forced_rk_iteration(w_list, f_list, level: MGLevel, cfg, ref, winf,
+                         cfl, coeffs, irs_eps, rsv):
+    """One multistage RK iteration on one level with the FAS forcing
+    ``f_list`` and the smoothing of ``irs_eps``; ``rsv``: the row scale
+    (``ProblemConfig.row_scale``) or None. Returns (w_list, its first
+    stage's forced residual)."""
+    w0 = fill_halos(w_list, level.metrics_list, level.topo, ref, winf)
+    dt_list = [local_timestep(w, pressure(w), m, cfl, cfg, ref)
+               / m.vol[2:-2, 2:-2, 2:-2]
+               for w, m in zip(w0, level.metrics_list)]
+    wk = w0
+    r_first = None
+    for alpha in coeffs:
+        r_list = _forced_residual(wk, level, cfg, ref, f_list)
+        if r_first is None:
+            r_first = r_list
+        if irs_eps > 0.0:
+            r_list = [residual_averaging(r, irs_eps) for r in r_list]
+        if rsv is not None:
+            # turbResScale rows: the explicit update needs the physical
+            # residual
+            r_list = [r * (1.0 / rsv) for r in r_list]
+        new = [_with_interior(w0b, w0b[2:-2, 2:-2, 2:-2]
+                              - alpha * dtv[..., None] * r)
+               for w0b, r, dtv in zip(w0, r_list, dt_list)]
+        wk = fill_halos(new, level.metrics_list, level.topo, ref, winf)
+    return wk, r_first
+
+
 def rk_smooth(w_list, level: MGLevel, cfg, ref, winf, cfl, f_list=None,
               n_iter: int = 1, coeffs: Sequence[float] = RK_COEFFS,
-              irs_eps: float = 0.0):
+              irs_eps: float = 0.0, graphs=None, row_scale=None):
     """n_iter multistage RK iterations on one level with the FAS forcing and
     optional implicit residual smoothing. Returns (w_list, the first
-    stage's forced residual)."""
+    stage's forced residual).
+
+    ``graphs``: the solve's ``rk_graph.IterationGraphs``, where the level's
+    iteration is one CUDA graph from its second run in the solve on (where
+    ``rk_graph.graphable`` holds; one for this call where not given): a
+    solve keeps the same configuration, CFL, coefficients and smoothing on
+    a level. ``row_scale``: the solve's ``cfg.row_scale``, made here where
+    not given (a copy from the host)."""
+    rsv = row_scale if row_scale is not None else cfg.row_scale(
+        w_list[0].dtype, w_list[0].device)
+    own = graphs is None
+    if own:
+        graphs = rk_graph.IterationGraphs()
+    it = graphs.iteration(
+        (id(level), cfl, irs_eps, tuple(coeffs), f_list is None),
+        lambda w, f: _forced_rk_iteration(w, f, level, cfg, ref, winf, cfl,
+                                          coeffs, irs_eps, rsv),
+        lambda: rk_graph.graphable(w_list, level.metrics_list, level.topo,
+                                   cfg, ref, winf, level.extras_list,
+                                   irs_eps))
+    it.force(f_list)
     r_first = None
-    # the row scale's copy to the device once a call, not once an iteration
-    rsv = cfg.row_scale(w_list[0].dtype, w_list[0].device)
     for _ in range(n_iter):
-        w0 = fill_halos(w_list, level.metrics_list, level.topo, ref, winf)
-        dt_list = [local_timestep(w, pressure(w), m, cfl, cfg, ref)
-                   / m.vol[2:-2, 2:-2, 2:-2]
-                   for w, m in zip(w0, level.metrics_list)]
-        wk = w0
-        for alpha in coeffs:
-            r_list = _forced_residual(wk, level, cfg, ref, f_list)
-            if r_first is None:
-                r_first = r_list
-            if irs_eps > 0.0:
-                r_list = [residual_averaging(r, irs_eps) for r in r_list]
-            if rsv is not None:
-                # turbResScale rows: the explicit update needs the physical
-                # residual
-                r_list = [r * (1.0 / rsv) for r in r_list]
-            new = [_with_interior(w0b, w0b[2:-2, 2:-2, 2:-2]
-                                  - alpha * dtv[..., None] * r)
-                   for w0b, r, dtv in zip(w0, r_list, dt_list)]
-            wk = fill_halos(new, level.metrics_list, level.topo, ref, winf)
-        w_list = wk
+        w_list, r_list = it(w_list)
+        if r_first is None:
+            # a graph's outputs: the next replay overwrites them
+            r_first = (r_list if it.graph is None
+                       else [r.clone() for r in r_list])
+    if own:
+        graphs.close()
     return w_list, r_first
 
 
@@ -294,9 +329,11 @@ def fas_cycle(w_list, levels: List[MGLevel], cfg, ref, winf, cfl,
               n_pre: int = 1, n_post: int = 1, n_coarsest: int = 4,
               damp: float = 1.0, irs_eps: float = 0.0,
               cfl_coarse: float = None,
-              vis2_coarse: float = VIS2_COARSE, coarse_disc: str = None):
+              vis2_coarse: float = VIS2_COARSE, coarse_disc: str = None,
+              graphs=None, row_scale=None):
     """One recursive FAS V- or W-cycle starting at level ``lev``. Returns
-    (w_list, the pre-smoothing's first-stage forced residual)."""
+    (w_list, the pre-smoothing's first-stage forced residual).
+    ``graphs``, ``row_scale``: the solve's, for ``rk_smooth``."""
     level = levels[lev]
     cfg_l = _level_cfg(cfg, lev, vis2_coarse, coarse_disc)
     if lev == 0:
@@ -310,12 +347,14 @@ def fas_cycle(w_list, levels: List[MGLevel], cfg, ref, winf, cfl,
     if lev == len(levels) - 1:
         with trace.span(f"mg.level.{lev}"):
             return rk_smooth(w_list, level, cfg_l, ref, winf, cfl_l, f_list,
-                             n_iter=n_coarsest, irs_eps=irs_eps)
+                             n_iter=n_coarsest, irs_eps=irs_eps,
+                             graphs=graphs, row_scale=row_scale)
 
     with trace.span(f"mg.level.{lev}"):
         # pre-smooth
         w_list, r_first = rk_smooth(w_list, level, cfg_l, ref, winf, cfl_l,
-                                    f_list, n_iter=n_pre, irs_eps=irs_eps)
+                                    f_list, n_iter=n_pre, irs_eps=irs_eps,
+                                    graphs=graphs, row_scale=row_scale)
 
         # the fine forced residual at the smoothed state
         wf = fill_halos(w_list, level.metrics_list, level.topo, ref, winf)
@@ -344,7 +383,8 @@ def fas_cycle(w_list, levels: List[MGLevel], cfg, ref, winf, cfl,
         for _ in range(2 if cycle == "w" else 1):
             wc, _ = fas_cycle(wc, levels, cfg, ref, winf, cfl, lev + 1, f_c,
                               cycle, n_pre, n_post, n_coarsest, damp,
-                              irs_eps, cfl_coarse, vis2_coarse, coarse_disc)
+                              irs_eps, cfl_coarse, vis2_coarse, coarse_disc,
+                              graphs, row_scale)
 
         # prolong the correction (damped, physicality-clamped), post-smooth
         with trace.span("mg.transfer"):
@@ -353,7 +393,8 @@ def fas_cycle(w_list, levels: List[MGLevel], cfg, ref, winf, cfl,
                        level.factors[i]))
                    for i, w in enumerate(w_list)]
         w_list, _ = rk_smooth(new, level, cfg_l, ref, winf, cfl_l, f_list,
-                              n_iter=n_post, irs_eps=irs_eps)
+                              n_iter=n_post, irs_eps=irs_eps, graphs=graphs,
+                              row_scale=row_scale)
     return w_list, r_first
 
 
@@ -382,7 +423,9 @@ def solve_mg(w_list, levels: List[MGLevel], cfg, ref, winf,
     smoothParameter, inputIteration.F90), on unless 'never', with eps =
     smoothParameter - 1, so the reference default 1.5 gives the classical
     eps = 0.5. The norms stay on the device within a chunk of ``chunk``
-    cycles and are copied to the host once a chunk.
+    cycles and are copied to the host once a chunk. Each level's RK
+    iteration runs as a CUDA graph from its second run on where
+    ``rk_graph.graphable`` holds; the graphs live for this call.
     Returns (w_list, SolveInfo)."""
     from adflow_torch.solvers.steady import SolveInfo
 
@@ -390,6 +433,9 @@ def solve_mg(w_list, levels: List[MGLevel], cfg, ref, winf,
     irs_eps = (0.0 if str(res_averaging).lower() == "never"
                else max(float(smooth_param) - 1.0, 0.0))
 
+    graphs = rk_graph.IterationGraphs()
+    # the row scale's copy to the device once a solve
+    rsv = cfg.row_scale(w_list[0].dtype, w_list[0].device)
     hist_all = []
     it = 0
     r0 = None
@@ -403,7 +449,8 @@ def solve_mg(w_list, levels: List[MGLevel], cfg, ref, winf,
                                       n_pre=n_pre, n_post=n_post,
                                       cfl_coarse=cfl_coarse,
                                       vis2_coarse=vis2_coarse,
-                                      coarse_disc=coarse_disc)
+                                      coarse_disc=coarse_disc,
+                                      graphs=graphs, row_scale=rsv)
             rows.append(torch.stack(residual_norms(r)))
         hist = torch.stack(rows).double().cpu().numpy()
         trace.host_sync()
@@ -422,6 +469,7 @@ def solve_mg(w_list, levels: List[MGLevel], cfg, ref, winf,
             break
         if deadline is not None and time.time() >= deadline:
             break
+    graphs.close()
     hist_np = np.concatenate(hist_all) if hist_all else np.zeros((0, 2))
     info = SolveInfo(
         converged=converged, failed=failed, iterations=it,

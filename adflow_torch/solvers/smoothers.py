@@ -93,14 +93,26 @@ def _with_interior(w, interior):
     return out
 
 
+def turb_unscale(cfg: ProblemConfig, dtype, device):
+    """(n_turb,) 1 / turbResScale on ``device``, which the explicit update
+    multiplies into the turbulence rows (the residuals come back with them
+    scaled), or None where no row is scaled. A copy from the host: made
+    once a solve, not once an iteration."""
+    if not cfg.rans or all(s == 1.0 for s in cfg.turb_scales):
+        return None
+    return torch.tensor([1.0 / s for s in cfg.turb_scales], dtype=dtype,
+                        device=device)
+
+
 def rk_iteration(w_list, metrics_list, topo: MeshTopology, cfg: ProblemConfig,
                  ref, winf, cfl, extras_list=None,
-                 coeffs: Sequence[float] = RK_COEFFS):
+                 coeffs: Sequence[float] = RK_COEFFS, inv_ts=None):
     """One multistage RK iteration on all blocks.
 
     Returns (new w_list, first-stage residual list). States enter and leave
     with halos *unfilled* (interior authoritative); halos are (re)filled
-    internally before each residual evaluation.
+    internally before each residual evaluation. ``inv_ts``: the solve's
+    ``turb_unscale``, made here where not given.
     """
     w0_list = fill_halos(w_list, metrics_list, topo, ref, winf)
     # frozen local dt over the stages
@@ -118,13 +130,8 @@ def rk_iteration(w_list, metrics_list, topo: MeshTopology, cfg: ProblemConfig,
             for i, (w, m) in enumerate(zip(w0_list, metrics_list))]
 
     nmf = 5  # mean-flow channel count
-    # residuals come back with turbResScale-scaled turbulence rows; the
-    # explicit update must undo that scaling
-    inv_ts = None
-    if cfg.rans and any(s != 1.0 for s in cfg.turb_scales):
-        inv_ts = torch.tensor([1.0 / s for s in cfg.turb_scales],
-                              dtype=w0_list[0].dtype,
-                              device=w0_list[0].device)
+    if inv_ts is None:
+        inv_ts = turb_unscale(cfg, w0_list[0].dtype, w0_list[0].device)
 
     r0_list = None
     wk_list = w0_list

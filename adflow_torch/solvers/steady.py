@@ -16,8 +16,9 @@ from typing import Callable, NamedTuple, Optional
 import numpy as np
 import torch
 
+from adflow_torch.solvers import rk_graph
 from adflow_torch.solvers.smoothers import (
-    dadi_iteration, residual_norms, rk_iteration)
+    dadi_iteration, residual_norms, rk_iteration, turb_unscale)
 from adflow_torch.utils import trace
 
 
@@ -50,10 +51,26 @@ def solve_rk(w_list, metrics_list, topo, cfg, ref, winf,
     deadline: absolute time.time() after which the loop stops (reference:
     timeLimit option checked in solvers.F90:1136).
     signal_check: ``SignalMonitor.check`` (utils/signals.py), polled once a
-    chunk with a provider of the current iterate; 'stop' ends the loop."""
+    chunk with a provider of the current iterate; 'stop' ends the loop.
+
+    The RK iteration runs as a CUDA graph from its second iteration on
+    where ``rk_graph.graphable`` holds (``solvers/rk_graph.py``); the
+    graph lives for this call."""
     dadi = smoother.lower().startswith("dadi")
-    iteration = dadi_iteration if dadi else rk_iteration
     itertype = "DADI" if dadi else "RK"
+    graphs = rk_graph.IterationGraphs()
+    if dadi:
+        def iteration(w):
+            return dadi_iteration(w, metrics_list, topo, cfg, ref, winf, cfl,
+                                  extras_list)
+    else:
+        inv_ts = turb_unscale(cfg, w_list[0].dtype, w_list[0].device)
+        iteration = graphs.iteration(
+            "rk", lambda w, _: rk_iteration(
+                w, metrics_list, topo, cfg, ref, winf, cfl, extras_list,
+                inv_ts=inv_ts),
+            lambda: rk_graph.graphable(w_list, metrics_list, topo, cfg, ref,
+                                       winf, extras_list))
     hist_all = []
     it = 0
     r0 = total_r0
@@ -62,8 +79,7 @@ def solve_rk(w_list, metrics_list, topo, cfg, ref, winf,
         rows = []
         for _ in range(chunk):
             with trace.span("smoother.cycle"):
-                w_list, r_list = iteration(w_list, metrics_list, topo, cfg,
-                                           ref, winf, cfl, extras_list)
+                w_list, r_list = iteration(w_list)
             rows.append(torch.stack(residual_norms(r_list)))
         hist = torch.stack(rows).double().cpu().numpy()
         trace.host_sync()
@@ -86,6 +102,7 @@ def solve_rk(w_list, metrics_list, topo, cfg, ref, winf,
             break
         if deadline is not None and time.time() >= deadline:
             break
+    graphs.close()
     hist_np = np.concatenate(hist_all) if hist_all else np.zeros((0, 2))
     info = SolveInfo(
         converged=converged, failed=failed, iterations=it,

@@ -24,8 +24,13 @@ thread that runs the solve.
 Counters always count: ``host_syncs``, every device-to-host copy of the
 solve loops (``host_sync()`` where the copy is made), beside the kernels'
 ``LAUNCHES`` (K1's, K2's, the BC pass's, ``bc_launches``, and the
-residual smoothing's, ``irs_launches``) and the Newton functions' exact
-residual evaluations.
+residual smoothing's, ``irs_launches``), the Newton functions' exact
+residual evaluations, and the RK iterations (``rk_iterations``, eager or
+replayed) with the CUDA graph replays and captures among them
+(``rk_graph_replays``, ``rk_graph_captures``; ``solvers/rk_graph.py``).
+While the current stream captures a CUDA graph no span is recorded: the
+capture executes nothing, and a capture is one span of its own
+(``smoother.graph_capture``).
 """
 
 from __future__ import annotations
@@ -42,12 +47,21 @@ from adflow_torch.ops import cuda_bc, cuda_inviscid, cuda_irs, cuda_rans
 CAP = 1 << 20
 
 host_syncs = 0
+rk_iterations = 0
+rk_graph_replays = 0
+rk_graph_captures = 0
 
 
 def host_sync(n: int = 1):
     """Count ``n`` device-to-host copies made at the caller's site."""
     global host_syncs
     host_syncs += n
+
+
+def capturing() -> bool:
+    """Whether the current CUDA stream is capturing a graph."""
+    return (torch.cuda.is_initialized()
+            and torch.cuda.is_current_stream_capturing())
 
 
 class Span(NamedTuple):
@@ -86,6 +100,9 @@ def _counters(counts) -> Dict[str, int]:
             "k2_launches": cuda_inviscid.LAUNCHES,
             "bc_launches": cuda_bc.LAUNCHES,
             "irs_launches": cuda_irs.LAUNCHES,
+            "rk_iterations": rk_iterations,
+            "rk_graph_replays": rk_graph_replays,
+            "rk_graph_captures": rk_graph_captures,
             "res_evals": counts["res"] if counts is not None else 0}
 
 
@@ -154,6 +171,8 @@ def span(name: str, counts: Optional[dict] = None):
     global _off
     if not torch.autograd._profiler_enabled():
         _off = True
+        return _CLOSED
+    if capturing():
         return _CLOSED
     return _Open(name, counts)
 

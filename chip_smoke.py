@@ -155,6 +155,7 @@ Without a card it exits with 1 and prints no result.
 
 from __future__ import annotations
 
+import collections
 import json
 import multiprocessing
 import sys
@@ -488,27 +489,71 @@ def small_solve_parity():
 RK_SUMMARY = {}
 
 
+class ReplayCredit:
+    """While active, credits the counts a Python-side wrapper made while an
+    RK iteration was captured as a CUDA graph (``rk_graph.Iteration``)
+    again at each replay of that graph, as the program does with the
+    kernels' counters: a replay runs no Python. ``counts``: the wrapper's
+    ``collections.Counter``."""
+
+    def __init__(self, counts):
+        self.counts, self.per_graph = counts, {}
+
+    def __enter__(self):
+        from adflow_torch.solvers import rk_graph
+        from adflow_torch.utils import trace
+        cls = self.cls = rk_graph.Iteration
+        capture, call = self.orig = cls._capture, cls.__call__
+
+        def captured(it, w_list):
+            before = collections.Counter(self.counts)
+            capture(it, w_list)
+            self.per_graph[it] = self.counts - before
+            self.counts.clear()
+            self.counts.update(before)
+
+        def called(it, w_list):
+            n = trace.rk_graph_replays
+            out = call(it, w_list)
+            if trace.rk_graph_replays > n:
+                self.counts.update(self.per_graph[it])
+            return out
+
+        cls._capture, cls.__call__ = captured, called
+        return self
+
+    def __exit__(self, *exc):
+        self.cls._capture, self.cls.__call__ = self.orig
+
+
 class BCPasses:
     """Counts the BC passes of the halo fills while active
     (``residual.apply_bcs`` swapped for a counting wrapper, restored on
-    exit), and the BC kernel's launches meanwhile."""
+    exit; a graph's replays credited by ``ReplayCredit``), and the BC
+    kernel's launches meanwhile."""
 
     def __enter__(self):
         from adflow_torch.ops import cuda_bc
         from adflow_torch.physics import residual
         fn = self.orig = residual.apply_bcs
-        self.n, self.launches0 = 0, cuda_bc.LAUNCHES
+        self.counts, self.launches0 = collections.Counter(), cuda_bc.LAUNCHES
 
         def counted(*a, **k):
-            self.n += 1
+            self.counts["passes"] += 1
             return fn(*a, **k)
 
         residual.apply_bcs = counted
+        self.credit = ReplayCredit(self.counts).__enter__()
         return self
 
     def __exit__(self, *exc):
         from adflow_torch.physics import residual
+        self.credit.__exit__(*exc)
         residual.apply_bcs = self.orig
+
+    @property
+    def n(self):
+        return self.counts["passes"]
 
     @property
     def launches(self):
@@ -1956,23 +2001,26 @@ def mg_by_level(opts, rk_stages_only=False):
 class K1ByLevel:
     """Counts K1's launches by block dims and instantiation, wrapping
     ``cuda_rans.fused_rans_residual`` (which ``physics/residual.py`` looks
-    up at each call) while in use."""
+    up at each call) while in use, a graph's replays credited by
+    ``ReplayCredit``."""
 
     def __enter__(self):
         from adflow_torch.ops import cuda_rans
         self.mod, self.orig, self.counts = cuda_rans, \
-            cuda_rans.fused_rans_residual, {}
+            cuda_rans.fused_rans_residual, collections.Counter()
 
         def counted(*args, coarse=False, **kw):
             key = ("x".join(str(n - 4) for n in args[0].shape[:3]),
                    "coarse" if coarse else "fine")
-            self.counts[key] = self.counts.get(key, 0) + 1
+            self.counts[key] += 1
             return self.orig(*args, coarse=coarse, **kw)
 
         cuda_rans.fused_rans_residual = counted
+        self.credit = ReplayCredit(self.counts).__enter__()
         return self
 
     def __exit__(self, *exc):
+        self.credit.__exit__(*exc)
         self.mod.fused_rans_residual = self.orig
 
 

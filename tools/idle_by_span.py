@@ -60,10 +60,12 @@ KRYLOV = ("krylov.gmres", "krylov.iter", "krylov.matvec", "krylov.precond")
 # the spans each traffic's split keeps
 SPLIT = {
     "ank": API + ("newton.step", "newton.pc_build") + KRYLOV,
-    "rk": API + ("smoother.cycle", "halo.fill", "halo.bc_pass"),
+    "rk": API + ("smoother.cycle", "smoother.graph_capture", "halo.fill",
+                 "halo.bc_pass"),
     "adjoint": API + ("adjoint.solve", "adjoint.pc_build") + KRYLOV,
-    "fas": API + ("mg.cycle", "mg.transfer", "smoother.irs", "halo.fill",
-                  "halo.bc_pass") + tuple(f"mg.level.{n}" for n in range(8)),
+    "fas": API + ("mg.cycle", "mg.transfer", "smoother.irs",
+                  "smoother.graph_capture", "halo.fill", "halo.bc_pass")
+    + tuple(f"mg.level.{n}" for n in range(8)),
 }
 
 
