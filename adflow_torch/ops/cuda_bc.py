@@ -12,9 +12,8 @@ one place that decides), and the plain pass (``bc_pass_reference``, a call
 of ``bc.plain_bc_pass``) everywhere else.
 
 Bound on the H100: device-memory bytes, of the pass's clone of the padded
-block (``min_bytes``: 2 x 24-29 MB at 256x64x64, about 15-18 us at 3.35
-TB/s); the kernel's ghosts and mirrors add about 12% to that. ``python -m
-adflow_torch.ops.bc_timing`` measures a pass against it.
+block (read once and written once: 2 x 24-29 MB at 256x64x64, about 15-18
+us at 3.35 TB/s); the kernel's ghosts and mirrors add about 12% to that.
 
 The ``autograd.Function`` (``_BCPass``): forward clones the state once and
 launches the ops in order on the clone, so a later subface's extended
@@ -276,38 +275,3 @@ def fused_bc_pass(w, metrics, ops, ref, winf):
     from adflow_torch.physics.bc import physical_ops
     return _BCPass.apply(w, winf, metrics.siE, metrics.sjE, metrics.skE,
                          (tuple(physical_ops(ops)), ref))
-
-
-def sample_pass(dims, nw, device, seed=3, amp=0.01, mach=0.84,
-                alpha=3.06):
-    """One pass's inputs on a ``wing_omesh`` block of ``dims`` interior
-    cells (viscous where ``nw`` > 5: 6 SA, 7 SST), float32 on ``device``:
-    the padded free stream at ``mach``, ``alpha`` times 1 + ``amp`` seeded
-    relative noise; (w, metrics, ops, ref, winf), for checks and timing."""
-    import numpy as np
-
-    from adflow_torch.core.refstate import AeroProblem, make_reference_state
-    from adflow_torch.geom.metrics import compute_metrics
-    from adflow_torch.meshgen.analytic import wing_omesh
-    from adflow_torch.physics.bc import build_bc_ops
-
-    f32 = torch.float32
-    mesh = wing_omesh(ni=dims[0], nj=dims[1], nk=dims[2], viscous=nw > 5)
-    ref = make_reference_state(
-        AeroProblem(name="p", mach=mach, alpha=alpha,
-                    reynolds=1e6 if nw > 5 else None),
-        lift_index=2, n_turb=nw - 5)
-    rng = np.random.default_rng(seed)
-    w = np.asarray(ref.winf(), np.float32) * (1.0 + amp * rng.standard_normal(
-        tuple(n + 4 for n in dims) + (nw,)))
-    blk = mesh.blocks[0]
-    return (torch.as_tensor(w, dtype=f32, device=device),
-            compute_metrics(torch.as_tensor(blk.x, dtype=f32, device=device)),
-            tuple(build_bc_ops(blk)), ref,
-            torch.as_tensor(ref.winf(), dtype=f32, device=device))
-
-
-def min_bytes(w):
-    """Bytes one pass must move: the clone of the padded state, read once
-    and written once."""
-    return 2 * w.numel() * w.element_size()

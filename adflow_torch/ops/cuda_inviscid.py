@@ -21,9 +21,9 @@ on.
 Bound on the H100: device-memory bytes. One evaluation at 256x64x64 must
 read its inputs once and write its output once, about 104 MB (31 us at
 3.35 TB/s), against about 0.44 GFLOP (6.5 us at 67 TFLOP/s f32). No tensor
-core applies: the kernel is a stencil with no matrix product.
-``chip_smoke.py`` and ``python -m adflow_torch.ops.k2_timing`` measure it
-against the bound.
+core applies: the kernel is a stencil with no matrix product. The
+benchmark's traced run measures it against the bound (``k2_roofline``,
+``benchmark/roofline/k2.py``).
 
 On CPU tensors the wrapper computes the plain version
 (``inviscid_residual_reference``). On CUDA tensors it launches the kernel or
@@ -47,15 +47,6 @@ from adflow_torch.ops import _nvcc
 LAUNCHES = 0
 
 SRC = _nvcc.CSRC / "inviscid_residual.cu"
-
-# Operation count per evaluation (flop_count), from the arithmetic of the
-# plain version: per one-ring extended cell (velocity, sound speed, sensor
-# in three directions, three radii and their directional scaling), per face
-# (central flux and JST dissipation of five channels) and per interior cell
-# (face differences). Transcendentals count 1.
-FLOP_PER_EXT_CELL = 90
-FLOP_PER_FACE = 95
-FLOP_PER_CELL = 30
 
 # The tile inviscid_residual.cu is built for: TJ x TK columns,
 # K2_THREADS_PER_COLUMN threads a column, K2_BLOCKS_PER_SM blocks on an SM
@@ -295,7 +286,7 @@ def sample_operands(dims, device, seed=3, amp=0.01, mach=0.5, alpha=2.0):
     block with ``dims`` interior cells: float32 metrics and porosities on
     ``device``, and the free stream at ``mach``, ``alpha`` perturbed by
     ``amp`` relative noise from ``seed`` with its halos filled (the setup of
-    the JAX package's tests/test_pallas.py), for checks and timing."""
+    the JAX package's tests/test_pallas.py), for the kernel's checks."""
     import numpy as np
 
     from adflow_torch.core.refstate import AeroProblem, make_reference_state
@@ -321,19 +312,3 @@ def sample_operands(dims, device, seed=3, amp=0.01, mach=0.5, alpha=2.0):
     tensors = [wf.contiguous(), pressure(wf).contiguous(), m.siE, m.sjE,
                m.skE, *topo.blocks[0].por]
     return tensors, (0.25, 1.0 / 64.0, 0.67)
-
-
-def min_bytes(ni, nj, nk, itemsize=4):
-    """Bytes one evaluation must move: each input read once, the output
-    written once."""
-    n = sum(int(torch.Size(s).numel())
-            for s in _expected_shapes(ni, nj, nk).values())
-    return (n + ni * nj * nk * 5) * itemsize
-
-
-def flop_count(ni, nj, nk):
-    """Floating-point operations of one evaluation (see FLOP_PER_*)."""
-    n_ext = (ni + 2) * (nj + 2) * (nk + 2)
-    n_faces = (ni + 1) * nj * nk + ni * (nj + 1) * nk + ni * nj * (nk + 1)
-    return (FLOP_PER_EXT_CELL * n_ext + FLOP_PER_FACE * n_faces
-            + FLOP_PER_CELL * ni * nj * nk)

@@ -16,8 +16,9 @@ copy width, so that the CPU tests check what the CUDA code relies on.
 Bound on the H100: device-memory bytes. One evaluation at 256x64x64 must
 read its inputs once and write its output once, about 130 MB (39 us at
 3.35 TB/s), against about 1.6 GFLOP (23 us at 67 TFLOP/s f32). No tensor
-core applies: the kernel is a stencil with no matrix product.
-``chip_smoke.py`` measures it against the bound.
+core applies: the kernel is a stencil with no matrix product. The
+benchmark's traced run measures it against the bound (``k1_roofline``,
+``benchmark/roofline/k1.py``).
 
 On CPU tensors the wrapper computes the plain version
 (``rans_residual_reference``). On CUDA tensors it launches the kernel or
@@ -41,16 +42,6 @@ from adflow_torch.ops import _nvcc
 LAUNCHES = 0
 
 SRC = _nvcc.CSRC / "rans_residual.cu"
-
-# Operation count per evaluation (flop_count), from the arithmetic of the
-# plain version: per one-ring extended cell (derived state, sensor, three
-# radii and their scaling, 15 Green-Gauss gradient components), per face
-# (central flux, JST dissipation, normal-corrected face gradient of 5
-# fields, stress tensor, heat flux, SA advection and diffusion) and per
-# interior cell (SA source, face differences). Transcendentals count 1.
-FLOP_PER_EXT_CELL = 400
-FLOP_PER_FACE = 300
-FLOP_PER_CELL = 160
 
 
 # The tile rans_residual.cu is built for: TJ x TK columns, two threads a
@@ -306,7 +297,7 @@ def sample_operands(dims, device, seed=0, amp=0.03):
     with ``dims`` interior cells: float32 metrics, wall distance and
     porosities on ``device``, and the free stream at M 0.8, alpha 1.5,
     Re 1e6 perturbed by ``amp`` relative noise from ``seed`` (the setup of
-    the JAX package's tests/test_pallas_rans.py), for checks and timing."""
+    the JAX package's tests/test_pallas_rans.py), for the kernel's checks."""
     import numpy as np
 
     from adflow_torch.core.refstate import AeroProblem, make_reference_state
@@ -333,19 +324,3 @@ def sample_operands(dims, device, seed=0, amp=0.03):
                m.vol, m.xc_ext, d, *por]
     consts = (0.25, 1.0 / 64.0, 0.67, ref.mu_inf, ref.t_inf_dim, True, 1e4)
     return tensors, consts
-
-
-def min_bytes(ni, nj, nk, itemsize=4):
-    """Bytes one evaluation must move: each input read once, the output
-    written once."""
-    n = sum(int(torch.Size(s).numel())
-            for s in _expected_shapes(ni, nj, nk).values())
-    return (n + ni * nj * nk * 6) * itemsize
-
-
-def flop_count(ni, nj, nk):
-    """Floating-point operations of one evaluation (see FLOP_PER_*)."""
-    n_ext = (ni + 2) * (nj + 2) * (nk + 2)
-    n_faces = (ni + 1) * nj * nk + ni * (nj + 1) * nk + ni * nj * (nk + 1)
-    return (FLOP_PER_EXT_CELL * n_ext + FLOP_PER_FACE * n_faces
-            + FLOP_PER_CELL * ni * nj * nk)

@@ -24,38 +24,24 @@ iteration of each level as a CUDA graph and replays it:
   pool, which the next solve's graph in the same slot shares (``_graph_of``).
 
 ``graphable`` decides from the inputs alone where this applies; elsewhere
-every iteration runs eagerly. Capture executes nothing, so the kernels'
-launch counters and ``trace.host_syncs`` are set back after it and each
-replay adds what the captured iteration counted. ``trace.rk_iterations``,
-``rk_graph_replays`` and ``rk_graph_captures`` count how often it engages.
+every iteration runs eagerly. Capture executes nothing, so the counters
+of ``trace.WORK`` (the kernels' launches and ``host_syncs``) are set back
+after it and each replay adds what the captured iteration counted.
+``trace.rk_iterations``, ``rk_graph_replays`` and ``rk_graph_captures``
+count how often it engages.
 """
 
 from __future__ import annotations
 
 import functools
 import weakref
-from typing import Callable, Hashable, List, Optional
+from typing import Callable, Hashable, Optional
 
 import torch
 
-from adflow_torch.ops import cuda_bc, cuda_inviscid, cuda_irs, cuda_rans
 from adflow_torch.physics import bc, residual
 from adflow_torch.solvers import smoothers
 from adflow_torch.utils import trace
-
-# the counters an iteration advances: (module, attribute)
-COUNTERS = ((cuda_rans, "LAUNCHES"), (cuda_inviscid, "LAUNCHES"),
-            (cuda_bc, "LAUNCHES"), (cuda_irs, "LAUNCHES"),
-            (trace, "host_syncs"))
-
-
-def _counts() -> List[int]:
-    return [getattr(mod, name) for mod, name in COUNTERS]
-
-
-def _set_counts(values):
-    for (mod, name), v in zip(COUNTERS, values):
-        setattr(mod, name, v)
 
 
 def _residual_takes_kernel(w, metrics, cfg, extras, por) -> bool:
@@ -201,7 +187,8 @@ class Iteration:
                     dst.copy_(src)
                 self._loaded = True
         self.graph.replay()
-        _set_counts([v + d for v, d in zip(_counts(), self.deltas)])
+        trace.set_work_counts({k: v + self.deltas[k]
+                               for k, v in trace.work_counts().items()})
         trace.rk_graph_replays += 1
         return self.w_in, self.r_out
 
@@ -219,12 +206,13 @@ class Iteration:
                                 (*w_new, *r_list)):
                 dst.copy_(src)
 
-        before = _counts()
+        before = trace.work_counts()
         slot = _take_slot(self, w_list[0].device)
         with trace.span("smoother.graph_capture"):
             self.graph = _graph_of(iteration, slot)
-        self.deltas = [a - b for a, b in zip(_counts(), before)]
-        _set_counts(before)
+        self.deltas = {k: v - before[k]
+                       for k, v in trace.work_counts().items()}
+        trace.set_work_counts(before)
         trace.rk_graph_captures += 1
 
     def close(self):

@@ -28,6 +28,10 @@ residual smoothing's, ``irs_launches``), the Newton functions' exact
 residual evaluations, and the RK iterations (``rk_iterations``, eager or
 replayed) with the CUDA graph replays and captures among them
 (``rk_graph_replays``, ``rk_graph_captures``; ``solvers/rk_graph.py``).
+``WORK`` is the one table of the counters that a piece of work advances
+(``host_syncs`` and the kernels' ``LAUNCHES``): the spans snapshot it, and
+``solvers/rk_graph.py`` sets it back after a capture and credits it at
+each replay.
 While the current stream captures a CUDA graph no span is recorded: the
 capture executes nothing, and a capture is one span of its own
 (``smoother.graph_capture``).
@@ -36,6 +40,7 @@ capture executes nothing, and a capture is one span of its own
 from __future__ import annotations
 
 import functools
+import sys
 import time
 from typing import Dict, List, NamedTuple, Optional
 
@@ -50,6 +55,26 @@ host_syncs = 0
 rk_iterations = 0
 rk_graph_replays = 0
 rk_graph_captures = 0
+
+
+# the counters work advances, by the name a span snapshots each under:
+# (name, module, attribute)
+WORK = (("host_syncs", sys.modules[__name__], "host_syncs"),
+        ("k1_launches", cuda_rans, "LAUNCHES"),
+        ("k2_launches", cuda_inviscid, "LAUNCHES"),
+        ("bc_launches", cuda_bc, "LAUNCHES"),
+        ("irs_launches", cuda_irs, "LAUNCHES"))
+
+
+def work_counts() -> Dict[str, int]:
+    """The counters of ``WORK`` now, by name."""
+    return {name: getattr(mod, attr) for name, mod, attr in WORK}
+
+
+def set_work_counts(values: Dict[str, int]):
+    """Set each counter of ``WORK`` to ``values[name]``."""
+    for name, mod, attr in WORK:
+        setattr(mod, attr, values[name])
 
 
 def host_sync(n: int = 1):
@@ -96,11 +121,7 @@ def spans() -> List[Span]:
 
 
 def _counters(counts) -> Dict[str, int]:
-    return {"host_syncs": host_syncs, "k1_launches": cuda_rans.LAUNCHES,
-            "k2_launches": cuda_inviscid.LAUNCHES,
-            "bc_launches": cuda_bc.LAUNCHES,
-            "irs_launches": cuda_irs.LAUNCHES,
-            "rk_iterations": rk_iterations,
+    return {**work_counts(), "rk_iterations": rk_iterations,
             "rk_graph_replays": rk_graph_replays,
             "rk_graph_captures": rk_graph_captures,
             "res_evals": counts["res"] if counts is not None else 0}

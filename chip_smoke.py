@@ -1,53 +1,57 @@
 #!/usr/bin/env python3
-"""Smoke run of adflow_torch on one NVIDIA card (H100).
+"""Card check of the adflow_torch paths that no benchmark cell runs, on one
+NVIDIA card (H100).
 
     python3 chip_smoke.py
 
 Run from the root of the repository on a machine with a CUDA card and the
-CUDA toolkit. It builds the four kernels with nvcc, one process each, started
-together: the fused RANS-SA residual (K1, adflow_torch/csrc/rans_residual.cu,
-one pass that marches along i, with a coarse-level instantiation), the
-central + JST inviscid residual (K2, adflow_torch/csrc/inviscid_residual.cu,
-one pass that marches along i as well), the physical-BC pass
-(adflow_torch/csrc/bc_ghost.cu, one launch a subface, with its tangent) and
-the implicit residual smoothing (adflow_torch/csrc/residual_averaging.cu,
-one launch an axis, a thread a line). Then, each phase timed:
-  [1]-[8]  K1 against its plain version, two of its launches against each
-           other (bitwise), and its gradient; the steady
-           RANS-SA Runge-Kutta solve of the 1.05 M-cell wing O-mesh through
-           ``ADFLOW`` (a path of its own, K1 launches counted, each BC
-           pass one BC kernel launch a subface); K1's tile plan,
-           registers and shared bytes, its times and one RK cycle's
-           breakdown;
-  [9]-[11] K2 against its plain version, on an odd block with a segment
-           that does not divide ni, and two of its launches against each
-           other and against three launches on slabs of i-planes, as a
-           block past its 32-bit offsets takes (bitwise); jvp and vjp
-           through both kernels' autograd.Functions on the card; a small
-           Euler ANK solve on the card against the CPU;
-  [12]     the main path: the default ANK solve of the Euler wing at
-           256x64x64 through ``ADFLOW``, K2 launches counted per step, each
-           BC pass one BC kernel launch a subface and each jvp matvec's
-           pass one more;
+CUDA toolkit. The benchmark (``benchmark/run.py``) runs the RK, ANK,
+adjoint and multigrid paths of the 256x64x64 wing against a float64
+reference with exact launch rules, and its traced run times the kernels
+(``k1_roofline``, ``k2_roofline``, ``k1_mg_roofline``, ``irs_roofline``);
+the tests marked ``cuda`` hold each kernel to its plain version on small
+blocks. This script holds the kernels to their plain versions at the
+cells' shapes, runs the RK and multigrid paths through ``ADFLOW`` with
+exact launch counts, untimed, and checks the paths that no cell runs,
+each phase timed. It builds the four kernels with
+nvcc, one process each, started together: the fused RANS-SA residual (K1,
+adflow_torch/csrc/rans_residual.cu), the central + JST inviscid residual
+(K2, adflow_torch/csrc/inviscid_residual.cu), the physical-BC pass
+(adflow_torch/csrc/bc_ghost.cu) and the implicit residual smoothing
+(adflow_torch/csrc/residual_averaging.cu). Then:
+  [1]      the builds, and each kernel's registers, shared bytes and
+           spills as ``-Xptxas -v`` prints them;
+  [4]      a small RK solve of the 16x8x8 RANS-SA wing on the card against
+           the CPU;
+  [5]      untimed, after [12]: K1 (nw 6) and K2 (nw 5) at 256x64x64 on
+           seeded operands against their plain versions; 50 RK cycles of
+           the viscous RANS-SA wing at 256x64x64 through ``ADFLOW``, K1 5
+           launches a cycle and the BC kernel one a physical subface a
+           pass, exactly (the counters of ``trace.WORK``); K1 at the solved
+           state against its plain version; the BC pass and its jvp on that
+           state (nw 6) and on [12]'s (nw 5) against the float64 plain
+           pass, bitwise repeatable; K1's coarse instantiation and the
+           smoothing kernel at 256x64x64, 128x32x32 and 64x16x16 against
+           their float64 plain versions;
+  [10]     jvp and vjp through both residual kernels' autograd.Functions
+           on the card;
+  [11]     a small Euler ANK solve on the card against the CPU;
+  [12]     the default ANK solve of the Euler wing at 256x64x64 through
+           ``ADFLOW``, the state that [16] and [28]-[30] start from;
   [13]     2 ANK steps of the RANS-SA wing at 64x24x16 through K1;
-  [14]     K2's tile plan, registers and shared bytes, its times, one ANK
-           step broken down and under torch.profiler;
   [15]     small adjoints (``evalFunctionsSens``) on the card against the
            CPU: the 16x8x8 Euler wing through K2, with the dot-product
            identity; the 16x8x8 RANS-SA wing through K1, against the CPU
            with frozen turbulence and, unfrozen, against the same card run
            without the kernels (``useBlockettes: False``); exact launch
            counts;
-  [16]     the main path's adjoint: ``evalFunctionsSens`` of cl on [12]'s
-           solved 256x64x64 Euler wing, 40 GMRES iterations, K2 launches
-           counted; the transposed PC's build and apply and one vjp
-           matvec timed; the dot-product identity at full width; three
-           adjoint GMRES iterations under torch.profiler;
-  [17]     matrix dissipation on the main path's wing: 1 ANK step from the
-           free stream with the characteristic line PC, exactly no kernel
-           launch; the PC's build and apply, a jvp matvec, the upwind (Roe,
-           van Albada) residual and its jvp timed; the peak device memory;
-           one step under torch.profiler;
+  [16]     the dot-product identity of the Jacobian-vector products at
+           full width, on [12]'s solved wing;
+  [17]     matrix dissipation on the Euler wing at 256x64x64: 1 ANK step
+           from the free stream with the characteristic line PC, exactly
+           no kernel launch; the PC's build and apply, a jvp matvec, the
+           upwind (Roe, van Albada) residual and its jvp timed; the peak
+           device memory; one step under the profiler;
   [18]     small cases, card against CPU: the upwind residual for each
            Riemann solver and limiter and the matrix residual, a matrix ANK
            step, the plate's flow-through functions, each new BC's ghost
@@ -59,11 +63,11 @@ one launch an axis, a thread a line). Then, each phase timed:
            answer on the CPU below 1e-7 of the free-stream one, and the
            answer against a float64 solve on the CPU (a process of its
            own, run meanwhile);
-  [20]     SST on the main path's mesh, viscous (RANS at the RK path's
+  [20]     SST on the 256x64x64 wing, viscous (RANS at the RK path's
            conditions): 1 ANK step from the free stream, K2 for every
            residual evaluation and no K1 launch; one SST residual, a jvp
            matvec, the 7-equation line PC timed; the peak device memory;
-           one jvp matvec and one PC apply under torch.profiler;
+           one jvp matvec and one PC apply under the profiler;
   [21]     small cases, card against CPU with exact launch counts: SST, the
            SA variants (rotation, Edwards, QCR, second-order advection)
            through K2, SA with wall functions on the plate through K1,
@@ -71,21 +75,17 @@ one launch an axis, a thread a line). Then, each phase timed:
            (their residuals and one ANK step each), actuator sources on
            the channel through K2, and ``evalFunctionsSens`` of cl in
            rotRate, rotCenter and machGrid on the Euler wing;
-  [22]     the other solvers at full width: the full-multigrid start and
-           5 '3w' FAS cycles of the RK path's 256x64x64 RANS-SA wing
-           (K1 exactly on every level's evaluations, 116 a cycle by the
-           benchmark's rule ``benchmark/drivers/mg.py``, counted level by
-           level and instantiation, and the start's coarse solves, K2
-           never; the smoothing kernel 3 launches a stage), one cycle
-           profiled; then the DADI smoother on the same wing, one K1
-           launch an iteration;
-  [23]     the multigrid (AMG) preconditioner on the main path's Euler
-           wing: 2 ANK steps (K2 exactly as in [12]), its build and apply
-           timed, the peak device memory, and evalFunctionsSens(cl) with
-           the transposed multigrid PC (20 GMRES iterations, 2 K2
-           launches);
+  [22]     the full-multigrid start and 5 '3w' W-cycles of the 256x64x64
+           RANS-SA wing through ``ADFLOW`` (K1, the smoothing kernel and
+           the BC kernel exactly on every level's work, K2 never); then the
+           DADI smoother on the same wing, one K1 launch an iteration;
+  [23]     the multigrid (AMG) preconditioner on the Euler wing at
+           256x64x64: 2 ANK steps (K2 exactly 2 + the steps' evaluations),
+           its build and apply timed, the peak device memory, and
+           evalFunctionsSens(cl) with the transposed multigrid PC (20 GMRES
+           iterations, 2 K2 launches);
   [24]     2 BDF2 steps, 2 explicit RK4 steps and a 3-instance time
-           spectral solve of the main path's Euler wing, K2 exactly on
+           spectral solve of the Euler wing at 256x64x64, K2 exactly on
            every residual evaluation, the stability derivatives;
   [25]     small cases, card against CPU with exact launch counts: a '2w'
            multigrid solve of the RANS-SA wing with its start (K1), DADI,
@@ -95,22 +95,22 @@ one launch an axis, a thread a line). Then, each phase timed:
            256x64x64 (its JMAX face OVERSET) in the 130x67x72 Cartesian
            background ``cartesian_background`` makes, implicit hole cut,
            RANS-SA through ``ADFLOW``: the assembly timed, 1 ANK step (K1 on
-           both blocks, exact launches) under torch.profiler,
-           K1 against its plain version on the background block, the fill
-           against an f64 fill on the CPU at every receiver; then
-           ``setSurfaceCoordinates`` with a bump and ``updateGeometryInfo``
-           (the warp against an f64 warp on the CPU, the quick wall distance
-           against a full search), ``checkMeshQuality``, ``checkOverset``, 1
-           ANK step and ``evalFunctionsSens(cl)`` (20 GMRES iterations, xv);
-           the peak device memory;
+           both blocks, exact launches) under the profiler, K1 against its
+           plain version on the background block, the fill against an f64
+           fill on the CPU at every receiver; then ``setSurfaceCoordinates``
+           with a bump and ``updateGeometryInfo`` (the warp against an f64
+           warp on the CPU, the quick wall distance against a full search),
+           ``checkMeshQuality``, ``checkOverset``, 1 ANK step and
+           ``evalFunctionsSens(cl)`` (20 GMRES iterations, xv); the peak
+           device memory;
   [27]     small overset cases, card against CPU with exact launch counts:
            box-in-box with its cut (K2: residual, 1 ANK step), the airfoil in
            its background (RANS, K1: residual, 1 ANK step), the two-patch
            zipper mesh's forces, a user surface on the channel, cperror2 and
            its adjoint, the overset airfoil's adjoint of cl, a warp with the
            quick wall-distance update;
-  [28]     the design point's files on [12]/[16]'s solved wing, no new
-           solve: the mesh through ``.npz`` and CGNS into ``gridFile``,
+  [28]     the design point's files on [12]'s solved wing, no new solve:
+           the mesh through ``.npz`` and CGNS into ``gridFile``,
            ``writeSolution`` (one K2 launch for the residual menu), a
            restart bitwise equal to the written state, the nodal forces
            against ``evalFunctions``, the force, slice and lift files, a
@@ -121,41 +121,24 @@ one launch an axis, a thread a line). Then, each phase timed:
            ``solveErrorEstimate`` of cl at full width, a SIGUSR2 stop, the
            ``jaxProfileDir`` trace, the MPhys adapter's dot-product
            identity and the Tecplot volume and isosurface writers against
-           the CPU's. [28] and [29] run right after [16], on its solver.
+           the CPU's. [28] and [29] run right after [16], on [12]'s solver;
   [30]     several devices, under an NCCL process group of one rank on the
            card: ``checkPartitioning(4)`` and ``balance_blocks`` of the
-           main path's wing (4 slots of 64x64x64), the stacked Euler
-           residual at [16]'s state against the single block's (exactly 4
+           256x64x64 wing (4 slots of 64x64x64), the stacked Euler
+           residual at [12]'s state against the single block's (exactly 4
            K2 launches), the stacked exchange bitwise equal to the CPU's,
            1 stacked ANK step timed (K2 exactly 4 a residual evaluation),
            3 stacked RK steps of the viscous RANS-SA wing (K1 exactly 4 x 5
            a step); the small wing's stacked ANK step and the k-split
            residual, card against CPU. It runs right after [29].
-  [31]     the BC pass kernel on the main path's wing at 256x64x64, for 5
-           (Euler) and 6 (SA) channels: the pass and its jvp against the
-           plain pass in float64 on the same float32 inputs, two passes
-           bitwise equal; its registers, its times beside the byte bound
-           (the clone of the padded state). It runs right after [3].
-  [32]     the multigrid levels' kernels at the three levels of the
-           256x64x64 wing (256x64x64, 128x32x32, 64x16x16), 6 channels:
-           K1's coarse instantiation against the plain coarse residual in
-           float64 on the same float32 inputs (each channel within 2e-5
-           of its scale, or twice the plain float32 version's distance),
-           two launches bitwise equal; the smoothing kernel along the
-           three axes against the float64 plain sweeps (1e-6), 3 launches
-           a call; each timed beside its byte bound and its plain
-           version (``adflow_torch/ops/mg_timing.py``). It runs right
-           after [31].
 Any failed check raises, so the exit code is not 0. The last line is
-``{"ok": true, "device": {...}}``; the line before it lists the kernels with
-their launches, errors and times (``ms`` by CUDA events around calls of the
-wrapper, ``profiled_ms`` the profiler's device time a launch on the path).
+``{"ok": true, "device": {...}}``; the line before it lists each kernel
+with its launches on the paths above, by path (the BC kernel's by phase).
 Without a card it exits with 1 and prints no result.
 """
 
 from __future__ import annotations
 
-import collections
 import json
 import multiprocessing
 import sys
@@ -165,26 +148,27 @@ from concurrent.futures import ProcessPoolExecutor
 import numpy as np
 import torch
 
-from adflow_torch.utils.timing import card_line, time_ms
+from benchmark.harness import power_limit, profile, time_ms
 
 # the flagship: the M6-class wing O-mesh of bench.py:105-108 at M6 conditions
 FULL_DIMS = (256, 64, 64)
 M6 = dict(name="m6", mach=0.84, alpha=3.06, reynolds=11.72e6,
           evalFuncs=["cl", "cd"])
-N_CYCLES = 50
+N_CYCLES = 50       # [5]'s RK solve
 RK_STAGES = 5
-SMALL_RTOL = 2e-5   # kernel vs plain, f32, small blocks (tests' tolerance)
-# full size, perturbed state: the same check, with room for the f32 sums
-# over 1 M cells of very different sizes
+# [5], a kernel against its plain version at full size on seeded operands,
+# with room for the f32 sums over 1 M cells of very different sizes
 FULL_RTOL = 1e-4
+# [5], K1's coarse instantiation against its float64 plain version: of each
+# channel's largest magnitude, or twice the plain float32 version's distance
+COARSE_RTOL = 2e-5
+IRS_RTOL = 1e-6     # [5], the smoothing against its float64 plain sweeps
 FLUX_RTOL = 1e-5    # post-solve state, relative to the flux scale
 GRAD_RTOL = 1e-6
 SOLVE_RTOL = 1e-3   # f32 on the card vs f64 on the CPU after 25 RK cycles
 # the main path: the default ANK solve of the Euler wing at M6 conditions
 EULER = dict(name="m6e", mach=0.84, alpha=3.06, evalFuncs=["cl", "cd"])
 ANK_STEPS = 5
-K2_SMALL_DIMS = ((16, 8, 8), (15, 7, 5))   # tests/test_pallas.py's wing, odd
-K2_ODD = ((37, 19, 33), 5)    # a block of no tile size, segment not dividing ni
 # f32 on the card vs f64 on the CPU after 3 ANK steps: each step's GMRES
 # stops at 5% of its right-hand side, so the f32 rounding moves where
 # the Krylov iterations stop
@@ -216,7 +200,8 @@ ROUTE_RTOL = 1e-4
 # face-flux differences that cancel (8.5e-8 on the small wing and 3.7e-8
 # at full width on an H100); a wrong transpose is O(1)
 DOT_RTOL_F32 = 1e-2
-# [16], the main path's adjoint: depth cut to 40 GMRES iterations
+# [29], the error estimate on [12]'s wing: its adjoint cut to 40 GMRES
+# iterations
 FULL_ADJ_OPTS = {"adjointSubspaceSize": 40, "adjointMaxIter": 40,
                  "printIterations": True, "adjointMonitorStep": 10}
 
@@ -224,8 +209,6 @@ FULL_ADJ_OPTS = {"adjointSubspaceSize": 40, "adjointMaxIter": 40,
 # step; and the upwind residual at its state
 MATRIX = {"discretization": "central plus matrix dissipation"}
 MATRIX_STEPS = 1
-UPWIND = {"discretization": "upwind", "riemannSolver": "Roe",
-          "limiter": "van Albada"}
 # [18], the small cases: card (f32) against the CPU (f64) at the seeded
 # perturbed free stream
 UPWIND_VARIANTS = [("upwind", rs, lim) for rs in ("roe", "van leer")
@@ -277,10 +260,10 @@ PLATE_SMALL = dict(name="fp", mach=0.3, alpha=0.0, reynolds=1e6,
                    reynoldsLength=1.0, T=300.0)
 
 # [22], the slice at full width: FAS multigrid on the RK path's wing, the
-# full-multigrid start as the defaults run it, then MG_CYCLES W-cycles; the
-# start's coarse RK solves capped at MG_COARSE_CYCLES iterations a level
-# (whole chunks of 25). Then the DADI smoother on the same wing: nCycles
-# DADI_CYCLES, which runs one chunk of 25 iterations
+# full-multigrid start as the defaults run it, then MG_CYCLES W-cycles (one
+# chunk); the start's coarse RK solves capped at MG_COARSE_CYCLES
+# iterations a level (whole chunks of 25). Then the DADI smoother on the
+# same wing: nCycles DADI_CYCLES, which runs one chunk of 25 iterations
 MG_OPTS = {"MGCycle": "3w", "MGStartLevel": -1}
 MG_CYCLES = 5
 MG_COARSE_CYCLES = 50
@@ -360,7 +343,7 @@ OVS_SMALL_AP = dict(name="ov", mach=0.5, alpha=2.0, reynolds=1e6,
 OVS_ADJ_OPTS = {"adjointSubspaceSize": 40, "adjointMaxIter": 40,
                 "adjointL2Convergence": 1e-14}
 SURF_FUNCS = ("mdot", "mavgptot", "mavgttot", "mavgps", "mavgmn", "area")
-# [28], the design point's files on [12]/[16]'s solved 1.05 M-cell Euler
+# [28], the design point's files on [12]'s solved 1.05 M-cell Euler
 # wing, no new solve; the files go under build/ and are removed after
 DESIGN_DIR = "build/design_point"
 DESIGN_SLICES_Z = (0.5, 1.3, 2.2)   # off the k node planes (dz = 3/64)
@@ -381,74 +364,12 @@ MPHYS_DOT_RTOL = 1e-4  # the adapter's fwd/rev dot-product identity, f32
 ISO_AMP = 5e-2         # the writers' state: a 5% seeded perturbation
 ISO_SURFACES = {"mach": 0.9, "density": 1.02}
 
-# peak rates for the bound: (device-memory bytes/s, f32 FLOP/s outside the
-# tensor cores), NVIDIA data sheets; the SXM part is the default
-PEAKS = (("H100 PCIe", 2.0e12, 51e12), ("H100 NVL", 3.9e12, 60e12),
-         ("H100", 3.35e12, 67e12))
-
-
-def peaks(name: str):
-    for key, bw, flops in PEAKS:
-        if key in name:
-            return bw, flops
-    return PEAKS[-1][1:]
-
-
 def rel_errors(want, got):
     """Per-channel max |got - want| / max |want|, and the max abs error."""
     diff = (got.double() - want.double()).abs()
     scale = want.double().abs().amax(dim=(0, 1, 2)) + 1e-30
     rel = (diff.amax(dim=(0, 1, 2)) / scale).tolist()
     return rel, float(diff.max())
-
-
-def compare_kernel(label, tensors, consts, rtol):
-    from adflow_torch.ops import cuda_rans
-    got = cuda_rans.fused_rans_residual(*tensors, *consts)
-    want = cuda_rans.rans_residual_reference(*tensors, *consts)
-    torch.cuda.synchronize()
-    rel, abs_err = rel_errors(want, got)
-    print(f"  K1 vs plain {label}: shape {tuple(got.shape)}, per-channel "
-          f"rel err {[f'{e:.3e}' for e in rel]}, max abs err {abs_err:.3e} "
-          f"(tolerance {rtol:g})")
-    assert got.shape == want.shape
-    assert bool(torch.isfinite(got).all()), "kernel output not finite"
-    assert max(rel) < rtol, f"K1 disagrees with its plain version: {rel}"
-    return max(rel), abs_err
-
-
-def check_bitwise(tensors, consts):
-    """Two K1 launches on the same inputs give the same bits: every face is
-    computed once and each cell sums its faces in a fixed order."""
-    from adflow_torch.ops import cuda_rans
-    a = cuda_rans.fused_rans_residual(*tensors, *consts)
-    b = cuda_rans.fused_rans_residual(*tensors, *consts)
-    torch.cuda.synchronize()
-    same = bool(torch.equal(a, b))
-    print(f"  two K1 launches on {tuple(a.shape[:3])}: bitwise equal {same}")
-    assert same, "K1 launches differ"
-
-
-def check_gradient(tensors, consts):
-    """One vjp through the kernel's autograd.Function against the plain
-    version's vjp."""
-    from adflow_torch.ops import cuda_rans
-    rest = tensors[1:]
-    w = tensors[0].clone().requires_grad_(True)
-    out = cuda_rans.fused_rans_residual(w, *rest, *consts)
-    gen = torch.Generator(device=w.device).manual_seed(1)
-    cot = torch.randn(out.shape, generator=gen, device=w.device)
-    (g_fused,) = torch.autograd.grad(out, w, cot)
-    _, vjp = torch.func.vjp(
-        lambda a: cuda_rans.rans_residual_reference(a, *rest, *consts),
-        tensors[0])
-    (g_plain,) = vjp(cot)
-    rel = float((g_fused - g_plain).abs().max()
-                / (g_plain.abs().max() + 1e-30))
-    print(f"  vjp through the autograd.Function vs plain vjp: rel err "
-          f"{rel:.3e} (tolerance {GRAD_RTOL:g})")
-    assert bool(torch.isfinite(g_fused).all())
-    assert rel < GRAD_RTOL
 
 
 def solver_options(n_cycles):
@@ -483,144 +404,6 @@ def small_solve_parity():
     assert dg == torch.float32 and dc == torch.float64
     assert np.all(np.isfinite(hg))
     assert h_rel < SOLVE_RTOL and f_rel < SOLVE_RTOL
-
-
-# [5]'s ms per RK cycle and residual drop per cycle, for [22]
-RK_SUMMARY = {}
-
-
-class ReplayCredit:
-    """While active, credits the counts a Python-side wrapper made while an
-    RK iteration was captured as a CUDA graph (``rk_graph.Iteration``)
-    again at each replay of that graph, as the program does with the
-    kernels' counters: a replay runs no Python. ``counts``: the wrapper's
-    ``collections.Counter``."""
-
-    def __init__(self, counts):
-        self.counts, self.per_graph = counts, {}
-
-    def __enter__(self):
-        from adflow_torch.solvers import rk_graph
-        from adflow_torch.utils import trace
-        cls = self.cls = rk_graph.Iteration
-        capture, call = self.orig = cls._capture, cls.__call__
-
-        def captured(it, w_list):
-            before = collections.Counter(self.counts)
-            capture(it, w_list)
-            self.per_graph[it] = self.counts - before
-            self.counts.clear()
-            self.counts.update(before)
-
-        def called(it, w_list):
-            n = trace.rk_graph_replays
-            out = call(it, w_list)
-            if trace.rk_graph_replays > n:
-                self.counts.update(self.per_graph[it])
-            return out
-
-        cls._capture, cls.__call__ = captured, called
-        return self
-
-    def __exit__(self, *exc):
-        self.cls._capture, self.cls.__call__ = self.orig
-
-
-class BCPasses:
-    """Counts the BC passes of the halo fills while active
-    (``residual.apply_bcs`` swapped for a counting wrapper, restored on
-    exit; a graph's replays credited by ``ReplayCredit``), and the BC
-    kernel's launches meanwhile."""
-
-    def __enter__(self):
-        from adflow_torch.ops import cuda_bc
-        from adflow_torch.physics import residual
-        fn = self.orig = residual.apply_bcs
-        self.counts, self.launches0 = collections.Counter(), cuda_bc.LAUNCHES
-
-        def counted(*a, **k):
-            self.counts["passes"] += 1
-            return fn(*a, **k)
-
-        residual.apply_bcs = counted
-        self.credit = ReplayCredit(self.counts).__enter__()
-        return self
-
-    def __exit__(self, *exc):
-        from adflow_torch.physics import residual
-        self.credit.__exit__(*exc)
-        residual.apply_bcs = self.orig
-
-    @property
-    def n(self):
-        return self.counts["passes"]
-
-    @property
-    def launches(self):
-        from adflow_torch.ops import cuda_bc
-        return cuda_bc.LAUNCHES - self.launches0
-
-
-def n_physical(solver):
-    """The BC kernel's launches a pass of the solver's one block: one a
-    physical subface."""
-    from adflow_torch.physics.bc import physical_ops
-    (blk,) = solver.topo.blocks
-    return len(physical_ops(blk.bc_ops))
-
-
-def main_path():
-    """The port's main path: ADFLOW on the full wing, 50 RK cycles, then
-    evalFunctions. Returns the solver, the K1 launches it made and the BC
-    kernel's."""
-    from adflow_torch.api.solver import ADFLOW
-    from adflow_torch.core.refstate import AeroProblem
-    from adflow_torch.meshgen.analytic import wing_omesh
-    from adflow_torch.ops import cuda_bc, cuda_inviscid, cuda_rans
-
-    mesh = wing_omesh(ni=FULL_DIMS[0], nj=FULL_DIMS[1], nk=FULL_DIMS[2],
-                      viscous=True)
-    cuda_inviscid.LAUNCHES = cuda_rans.LAUNCHES = cuda_bc.LAUNCHES = 0
-    t0 = time.perf_counter()
-    solver = ADFLOW(options=solver_options(N_CYCLES), mesh=mesh)
-    ap = AeroProblem(**M6)
-    solver.setAeroProblem(ap)
-    torch.cuda.synchronize()
-    t1 = time.perf_counter()
-    with BCPasses() as passes:
-        solver(ap)
-        torch.cuda.synchronize()
-        t2 = time.perf_counter()
-        solve_passes = passes.n
-        funcs = solver.evalFunctions(ap, {})
-    launches, k2 = cuda_rans.LAUNCHES, cuda_inviscid.LAUNCHES
-    bc_launches, per_pass = cuda_bc.LAUNCHES, n_physical(solver)
-
-    hist = solver.solve_info.history
-    print(f"  {mesh.n_cells} cells, dtype {solver.dtype}, device "
-          f"{solver.device}; set-up {t1 - t0:.3f} s")
-    for it in (0, 24, N_CYCLES - 1):
-        print(f"  cycle {it + 1:3d}: resrho {hist[it, 0]:.6e} "
-              f"resturb {hist[it, 1]:.6e}")
-    print(f"  {N_CYCLES} cycles in {t2 - t1:.3f} s: "
-          f"{(t2 - t1) / N_CYCLES * 1e3:.3f} ms per cycle")
-    print(f"  cl {funcs['m6_cl']!r}, cd {funcs['m6_cd']!r}")
-    print(f"  K1 launches {launches} (expected {RK_STAGES} per cycle per "
-          f"block: {RK_STAGES * N_CYCLES})")
-    print(f"  BC passes {passes.n} ({solve_passes} in the solve, expected 12 "
-          f"a cycle: {12 * N_CYCLES}), BC kernel launches {bc_launches} "
-          f"(expected {per_pass} a pass: {per_pass * passes.n})")
-    assert solver.dtype == torch.float32
-    assert hist.shape == (N_CYCLES, 2) and np.all(np.isfinite(hist))
-    assert np.isfinite(funcs["m6_cl"]) and np.isfinite(funcs["m6_cd"])
-    assert launches == RK_STAGES * N_CYCLES and k2 == 0, (launches, k2)
-    assert solve_passes == 12 * N_CYCLES, solve_passes
-    assert bc_launches == passes.launches == per_pass * passes.n, \
-        (bc_launches, passes.n)
-    RK_SUMMARY.update(ms=(t2 - t1) / N_CYCLES * 1e3,
-                      drop=float((hist[-1, 0] / hist[0, 0])
-                                 ** (1.0 / (N_CYCLES - 1))))
-    return solver, launches, bc_launches
 
 
 def main_path_operands(solver, block=0):
@@ -693,93 +476,174 @@ def compare_post_solve(tensors, consts):
     return max(rel), abs_err, max(flux_rel)
 
 
-def compare_k2(label, tensors, consts, rtol):
-    from adflow_torch.ops import cuda_inviscid
-    got = cuda_inviscid.fused_inviscid_residual(*tensors, *consts)
-    want = cuda_inviscid.inviscid_residual_reference(*tensors, *consts)
+def work_since(before):
+    """The counters of the program's table (``trace.WORK``) advanced since
+    ``before``, a ``trace.work_counts()``, by name."""
+    from adflow_torch.utils import trace
+    return {k: v - before[k] for k, v in trace.work_counts().items()}
+
+
+def n_physical(solver):
+    """The BC kernel's launches a pass of the solver's one block: one a
+    physical subface."""
+    from adflow_torch.physics.bc import physical_ops
+    (blk,) = solver.topo.blocks
+    return len(physical_ops(blk.bc_ops))
+
+
+def compare_to_plain(label, kernel, plain, tensors, consts):
+    """``kernel`` against its plain version on the same float32 operands,
+    within FULL_RTOL of each channel's largest magnitude."""
+    got = kernel(*tensors, *consts)
+    want = plain(*tensors, *consts)
     torch.cuda.synchronize()
     rel, abs_err = rel_errors(want, got)
-    print(f"  K2 vs plain {label}: shape {tuple(got.shape)}, per-channel "
-          f"rel err {[f'{e:.3e}' for e in rel]}, max abs err {abs_err:.3e} "
-          f"(tolerance {rtol:g})")
-    assert got.shape == want.shape
-    assert bool(torch.isfinite(got).all()), "kernel output not finite"
-    assert max(rel) < rtol, f"K2 disagrees with its plain version: {rel}"
-    return max(rel), abs_err
+    print(f"  {label} vs plain: shape {tuple(got.shape)}, per-channel rel "
+          f"err {[f'{e:.3e}' for e in rel]}, max abs err {abs_err:.3e} "
+          f"(tolerance {FULL_RTOL:g})")
+    assert got.shape == want.shape and bool(torch.isfinite(got).all())
+    assert max(rel) < FULL_RTOL, f"{label} disagrees with its plain version"
 
 
-def check_k2_plan_and_bitwise(dims, si):
-    """K2 on ``dims`` with segment ``si`` against its plain version, then two
-    K2 launches with the default plan bitwise equal: every face is computed
-    once and each cell sums its faces in a fixed order."""
-    from adflow_torch.ops import cuda_inviscid
-    tensors, consts = cuda_inviscid.sample_operands(dims, "cuda:0")
-    plan = cuda_inviscid.k2_tile_plan(*dims, si=si)
-    got = cuda_inviscid._launch(tensors, *consts, plan=plan)
-    want = cuda_inviscid.inviscid_residual_reference(*tensors, *consts)
-    a = cuda_inviscid.fused_inviscid_residual(*tensors, *consts)
-    b = cuda_inviscid.fused_inviscid_residual(*tensors, *consts)
+def check_bc_pass(solver):
+    """The BC pass kernel and its jvp on the solver's block at its state
+    against the float64 plain pass on the same float32 inputs: each ghost
+    within FULL_RTOL of its channel's largest magnitude (the plain float32
+    pass's distance printed beside it); two passes bitwise equal."""
+    from adflow_torch.ops import cuda_bc
+
+    w, m = solver.w_list[0], solver.metrics_list[0]
+    ops, ref, winf = tuple(solver.topo.blocks[0].bc_ops), solver.ref, \
+        solver.winf
+    nw = w.shape[-1]
+    gen = torch.Generator(device=w.device).manual_seed(nw)
+    v = torch.randn(w.shape, generator=gen, device=w.device)
+    m64 = m._replace(siE=m.siE.double(), sjE=m.sjE.double(),
+                     skE=m.skE.double())
+
+    def jvp(pass_fn, w, m, winf, v):
+        return torch.func.jvp(
+            lambda u: pass_fn(u, m, ops, ref, winf), (w,), (v,))[1]
+
+    got = cuda_bc.fused_bc_pass(w, m, ops, ref, winf)
+    again = cuda_bc.fused_bc_pass(w, m, ops, ref, winf)
+    tan = jvp(cuda_bc.fused_bc_pass, w, m, winf, v)
+    plain32 = cuda_bc.bc_pass_reference(w, m, ops, ref, winf)
+    exact = cuda_bc.bc_pass_reference(w.double(), m64, ops, ref,
+                                      winf.double())
+    exact_tan = jvp(cuda_bc.bc_pass_reference, w.double(), m64,
+                    winf.double(), v.double())
     torch.cuda.synchronize()
-    rel, abs_err = rel_errors(want, got)
-    same = bool(torch.equal(a, b))
-    print(f"  K2 vs plain {'x'.join(map(str, dims))}, segment {plan.si} "
-          f"(grid {plan.grid}): per-channel rel err "
-          f"{[f'{e:.3e}' for e in rel]}, max abs err {abs_err:.3e} "
-          f"(tolerance {SMALL_RTOL:g}); two launches bitwise equal {same}")
-    assert bool(torch.isfinite(got).all()), "kernel output not finite"
-    assert max(rel) < SMALL_RTOL, f"K2 disagrees with its plain version: {rel}"
-    assert same, "K2 launches differ"
-
-    # a block past the 32-bit offsets is one launch a slab of i-planes: the
-    # limit lowered to make three slabs of this block
-    limit = cuda_inviscid.W5_MAX_FLOATS
-    cuda_inviscid.W5_MAX_FLOATS = 5 * (dims[1] + 4) * (dims[2] + 4) * (
-        -(-dims[0] // 3) + 4)
-    try:
-        slabs = cuda_inviscid.k2_slabs(*dims)
-        before = cuda_inviscid.LAUNCHES
-        c = cuda_inviscid.fused_inviscid_residual(*tensors, *consts)
-        torch.cuda.synchronize()
-        n = cuda_inviscid.LAUNCHES - before
-    finally:
-        cuda_inviscid.W5_MAX_FLOATS = limit
-    same = bool(torch.equal(a, c))
-    print(f"  K2 in slabs {slabs}: {n} launches, bitwise equal to one "
-          f"launch {same}")
-    assert n == len(slabs) == 3 and same, "K2's slabs differ"
+    rel, abs_err = rel_errors(exact, got)
+    rel_tan, _ = rel_errors(exact_tan, tan)
+    rel_plain, _ = rel_errors(exact, plain32)
+    same = bool(torch.equal(got, again))
+    print(f"  BC pass at {'x'.join(str(n - 4) for n in w.shape[:3])}, nw "
+          f"{nw}: kernel vs float64 plain per-channel rel err "
+          f"{max(rel):.3e} (plain float32 {max(rel_plain):.3e}), max abs "
+          f"err {abs_err:.3e}; tangent {max(rel_tan):.3e} (tolerance "
+          f"{FULL_RTOL:g}); two passes bitwise equal {same}")
+    assert bool(torch.isfinite(got).all() and torch.isfinite(tan).all())
+    assert max(rel) < FULL_RTOL and max(rel_tan) < FULL_RTOL, (rel, rel_tan)
+    assert same, "BC kernel passes differ"
 
 
-def k2_operands(solver):
-    """K2's operands and constants as the main path gives them, at the
-    solver's current state."""
-    from adflow_torch.physics.thermo import pressure
-    w = solver._filled_w()[0]
-    m = solver.metrics_list[0]
-    cfg = solver.cfg
-    return ([w, pressure(w), m.siE, m.sjE, m.skE, *solver.topo.blocks[0].por],
-            (cfg.vis2, cfg.vis4, cfg.diss_exponent))
+def check_mg_level_kernels(dims):
+    """K1's coarse instantiation and the smoothing kernel at a multigrid
+    level's ``dims`` against their float64 plain versions on the same
+    float32 inputs: K1 within COARSE_RTOL of each channel's largest
+    magnitude or twice the plain float32 version's distance, a second
+    launch bitwise equal; the smoothing of a seeded (dims, 6) block along
+    its three axes within IRS_RTOL, in 3 launches."""
+    from adflow_torch.ops import cuda_irs, cuda_rans
+    from adflow_torch.solvers.multigrid import VIS2_COARSE
+
+    tensors, consts = cuda_rans.sample_operands(dims, "cuda:0")
+    consts = (VIS2_COARSE,) + tuple(consts[1:])
+    got = cuda_rans.fused_rans_residual(*tensors, *consts, coarse=True)
+    again = cuda_rans.fused_rans_residual(*tensors, *consts, coarse=True)
+    plain32 = cuda_rans.rans_residual_reference(*tensors, *consts,
+                                                coarse=True)
+    want = cuda_rans.rans_residual_reference(
+        *(t.double() for t in tensors), *consts, coarse=True)
+    errs, errs32 = rel_errors(want, got)[0], rel_errors(want, plain32)[0]
+    same = bool(torch.equal(got, again))
+    device = tensors[0].device
+    gen = torch.Generator(device=device).manual_seed(11)
+    r = torch.randn(tuple(dims) + (6,), generator=gen, device=device)
+    n0 = cuda_irs.LAUNCHES
+    smoothed = cuda_irs.smooth(r, 0.5)
+    n = cuda_irs.LAUNCHES - n0
+    irs_err = max(rel_errors(cuda_irs.irs_reference(r.double(), 0.5),
+                             smoothed)[0])
+    print(f"  {'x'.join(map(str, dims))}: K1 coarse vs float64 plain "
+          f"{max(errs):.3e} (plain float32 {max(errs32):.3e}; tolerance "
+          f"{COARSE_RTOL:g} or twice the plain's), two launches bitwise "
+          f"equal {same}; smoothing vs float64 plain {irs_err:.3e} "
+          f"(tolerance {IRS_RTOL:g}) in {n} launches")
+    assert all(e < max(COARSE_RTOL, 2.0 * p) for e, p in zip(errs, errs32)), \
+        (errs, errs32)
+    assert same, "K1 coarse launches differ"
+    assert irs_err < IRS_RTOL and n == 3, (irs_err, n)
 
 
-def compare_k2_post_solve(tensors, consts):
-    """K2 against its plain version at the main path's final state, relative
-    to each channel's flux scale (the largest |F(w) . S| over the interior
-    faces), for the reason compare_post_solve gives."""
-    from adflow_torch.ops import cuda_inviscid
+def main_path_kernels(euler):
+    """[5]: the cells' kernels at the cells' shapes against their plain
+    versions, untimed, and the RK path's solve through ``ADFLOW``. K1
+    (nw 6) and K2 (nw 5) at FULL_DIMS on seeded operands; N_CYCLES RK
+    cycles of the viscous wing, K1 5 launches a cycle, the BC kernel one a
+    physical subface a pass, K2 and the smoothing none; K1 at the solved
+    state against its plain version (of the flux scale); the BC pass and
+    its jvp on that state (nw 6) and on ``euler``'s solved state (nw 5);
+    K1's coarse instantiation and the smoothing at the three multigrid
+    levels' dims. Returns the counters (``trace.WORK``) the RK solve
+    advanced and those the whole phase did."""
+    from adflow_torch.api.solver import ADFLOW
+    from adflow_torch.core.refstate import AeroProblem
+    from adflow_torch.meshgen.analytic import wing_omesh
+    from adflow_torch.ops import cuda_inviscid, cuda_rans
+    from adflow_torch.utils import trace
 
-    got = cuda_inviscid.fused_inviscid_residual(*tensors, *consts)
-    want = cuda_inviscid.inviscid_residual_reference(*tensors, *consts)
-    torch.cuda.synchronize()
-    scale = flux_scale(tensors[0], tensors[1], tensors[2:5])
-    diff = (got.double() - want.double()).abs().amax(dim=(0, 1, 2))
-    flux_rel = (diff / scale.double()).tolist()
-    rel, abs_err = rel_errors(want, got)
-    print(f"  K2 vs plain, final state of the main path: max abs err "
-          f"{abs_err:.3e}; per-channel err relative to the flux scale "
-          f"{[f'{e:.3e}' for e in flux_rel]} (tolerance {FLUX_RTOL:g}); "
-          f"relative to the residual {[f'{e:.3e}' for e in rel]}")
-    assert bool(torch.isfinite(got).all()), "kernel output not finite"
-    assert max(flux_rel) < FLUX_RTOL, flux_rel
-    return abs_err, max(flux_rel)
+    start = trace.work_counts()
+    compare_to_plain("K1 at full size", cuda_rans.fused_rans_residual,
+                     cuda_rans.rans_residual_reference,
+                     *cuda_rans.sample_operands(FULL_DIMS, "cuda:0"))
+    compare_to_plain("K2 at full size",
+                     cuda_inviscid.fused_inviscid_residual,
+                     cuda_inviscid.inviscid_residual_reference,
+                     *cuda_inviscid.sample_operands(FULL_DIMS, "cuda:0"))
+
+    mesh = wing_omesh(ni=FULL_DIMS[0], nj=FULL_DIMS[1], nk=FULL_DIMS[2],
+                      viscous=True)
+    solver = ADFLOW(options=solver_options(N_CYCLES), mesh=mesh)
+    ap = AeroProblem(**M6)
+    solver.setAeroProblem(ap)
+    before = trace.work_counts()
+    solver(ap)
+    rk = work_since(before)
+    funcs = solver.evalFunctions(ap, {})
+    hist = solver.solve_info.history
+    # a halo fill (two BC passes) a residual evaluation and one more a cycle
+    want = {"k1_launches": RK_STAGES * N_CYCLES, "k2_launches": 0,
+            "bc_launches": 2 * n_physical(solver) * (RK_STAGES + 1)
+            * N_CYCLES, "irs_launches": 0}
+    print(f"  {N_CYCLES} RK cycles: resrho {hist[0, 0]:.6e} -> "
+          f"{hist[-1, 0]:.6e}; cl {funcs['m6_cl']!r}, cd "
+          f"{funcs['m6_cd']!r}; launches {rk} (expected {want}: K1 "
+          f"{RK_STAGES} a cycle, the BC kernel {n_physical(solver)} a pass, "
+          f"two passes a fill, a fill an evaluation and one more a cycle)")
+    assert solver.dtype == torch.float32
+    assert hist.shape == (N_CYCLES, 2) and np.all(np.isfinite(hist))
+    assert np.isfinite(funcs["m6_cl"]) and np.isfinite(funcs["m6_cd"])
+    assert {k: rk[k] for k in want} == want, (rk, want)
+    _, _, flux_rel = compare_post_solve(*main_path_operands(solver))
+    assert flux_rel < FLUX_RTOL, flux_rel
+    check_bc_pass(solver)
+    del solver
+    check_bc_pass(euler)
+    for lev in range(3):
+        check_mg_level_kernels(tuple(d // 2 ** lev for d in FULL_DIMS))
+    return rk, work_since(start)
 
 
 def check_derivatives():
@@ -828,6 +692,20 @@ def print_steps(info, evals="K2 launches"):
               f"{r.cfl:.4g}, Krylov iterations {int(r.stats[4])}, linres "
               f"{r.stats[5]:.3e}, {r.seconds * 1e3:.3f} ms, {evals} "
               f"{r.res_evals}")
+
+
+def device_profile(run, label):
+    """``run()`` under the benchmark's profiler of the device's activity
+    (``benchmark.harness.profile``): its wall time, the device's busy time,
+    device ops and idle share, and the operations that took most of the
+    device time."""
+    s = profile(run, label)
+    print(f"  profiler, {label}: wall {s['window_s'] * 1e3:.3f} ms, device "
+          f"busy {s['busy_s'] * 1e3:.3f} ms in {s['n_ops']} device ops, idle "
+          f"share {s['idle_pct'] / 100:.3f}")
+    rows = sorted(s["by_name"].items(), key=lambda kv: -kv[1][0])
+    for key, (sec, count) in rows[:12]:
+        print(f"    {sec * 1e3:9.3f} ms {count:7d}x  {key[:90]}")
 
 
 def perturbed_state(solver, seed=0, amp=1e-3):
@@ -880,58 +758,22 @@ def small_ank_parity(n_steps=3, options=None, ap_changes=None):
     assert h_rel < ANK_SOLVE_RTOL and f_rel < ANK_SOLVE_RTOL
 
 
-def ank_main_path():
-    """The port's main path: ADFLOW with default options on the full Euler
-    wing, ANK_STEPS ANK steps, then evalFunctions. Returns the solver, the
-    K2 launches it made and the BC kernel's."""
+def solved_euler_wing():
+    """[12]: ADFLOW with default options on the full Euler wing, ANK_STEPS
+    ANK steps from the free stream: the solved state that [16] and
+    [28]-[30] start from (``m6_euler.ank`` checks this path itself)."""
     from adflow_torch.api.solver import ADFLOW
     from adflow_torch.core.refstate import AeroProblem
     from adflow_torch.meshgen.analytic import wing_omesh
-    from adflow_torch.ops import cuda_bc, cuda_inviscid, cuda_rans
 
     mesh = wing_omesh(ni=FULL_DIMS[0], nj=FULL_DIMS[1], nk=FULL_DIMS[2])
-    cuda_inviscid.LAUNCHES = cuda_rans.LAUNCHES = cuda_bc.LAUNCHES = 0
-    t0 = time.perf_counter()
     solver = ADFLOW(options=euler_options(ANK_STEPS), mesh=mesh)
-    ap = AeroProblem(**EULER)
-    solver.setAeroProblem(ap)
-    torch.cuda.synchronize()
-    t1 = time.perf_counter()
-    with BCPasses() as passes:
-        solver(ap)
-        torch.cuda.synchronize()
-        t2 = time.perf_counter()
-        funcs = solver.evalFunctions(ap, {})
-    k2, k1 = cuda_inviscid.LAUNCHES, cuda_rans.LAUNCHES
-    bc_launches, per_pass = cuda_bc.LAUNCHES, n_physical(solver)
-
+    solver(AeroProblem(**EULER))
     info = solver.solve_info
-    print(f"  {mesh.n_cells} cells, dtype {solver.dtype}, device "
-          f"{solver.device}; set-up {t1 - t0:.3f} s; free-stream residual "
-          f"{info.total_r0:.6e}")
-    print_steps(info)
-    print(f"  {len(info.steps)} ANK steps in {t2 - t1:.3f} s: "
-          f"{(t2 - t1) / len(info.steps) * 1e3:.3f} ms per step")
-    print(f"  cl {funcs['m6e_cl']!r}, cd {funcs['m6e_cd']!r}")
-    expected = 2 + sum(r.res_evals for r in info.steps)
-    print(f"  K2 launches {k2} (expected {expected}: 2 for the Newton "
-          f"driver's free-stream and starting norms + the steps'), K1 "
-          f"launches {k1}")
-    matvecs = sum(r.krylov_matvecs for r in info.steps)
-    bc_expected = per_pass * (passes.n + 2 * matvecs)
-    print(f"  BC passes {passes.n}, {2 * matvecs} of them in the jvp "
-          f"matvecs; BC kernel launches {bc_launches} (expected "
-          f"{bc_expected}: {per_pass} a pass and {per_pass} more a "
-          f"matvec's pass for the tangent)")
-    assert solver.dtype == torch.float32
+    print(f"  {mesh.n_cells} cells, dtype {solver.dtype}: {len(info.steps)} "
+          f"ANK steps, R {info.total_r0:.6e} -> {info.total_r_final:.6e}")
     assert len(info.steps) == ANK_STEPS and not info.failed
-    assert np.all(np.isfinite(info.history))
-    assert np.isfinite(funcs["m6e_cl"]) and np.isfinite(funcs["m6e_cd"])
-    assert info.history[-1, 0] < info.total_r0, "residual did not fall"
-    assert k2 == expected and k1 == 0, (k2, k1)
-    assert bc_launches == passes.launches == bc_expected, \
-        (bc_launches, passes.n, matvecs)
-    return solver, k2, bc_launches
+    return solver
 
 
 def rans_ank_path():
@@ -962,96 +804,6 @@ def rans_ank_path():
     assert np.all(np.isfinite(info.history))
     assert k1 == expected and k2 == 0, (k1, k2)
     return k1
-
-
-def ank_breakdown(solver):
-    """One ANK step of the main path's final state broken into its pieces
-    (CUDA events), then one ANK step under torch.profiler; returns K2's
-    device ms a launch in them."""
-    from adflow_torch.solvers import krylov, newton
-
-    opts = solver.options
-    fns = newton.build_newton_fns(
-        solver.w_list, solver.metrics_list, solver.topo, solver.cfg,
-        solver.ref, solver.winf, solver.extras_list)
-    wvec = fns.packer.pack_w(solver.w_list)
-    cfl = solver.solve_info.steps[-1].cfl
-    axes, kappa = newton._pc_params(opts)
-    pc = fns.build_pc(wvec, cfl, axes=axes, kappa=kappa)
-    _, rs_list = fns.rad_sum_cells(wvec)
-    diag = fns.packer.pack([(rs / cfl)[..., None].expand(rs.shape + (5,))
-                            for rs in rs_list])
-    r = fns.res_flat(wvec)
-    v = r / torch.linalg.norm(r)
-
-    def matvec(u):
-        return diag * u + torch.func.jvp(fns.res_flat, (wvec,), (u,))[1]
-
-    def precond(u):
-        return newton.pc_apply_vec(pc, fns.packer, u)
-
-    m = min(50, int(opts["ANKMaxIter"]))
-    sols = []
-    parts = (
-        ("residual (K2)", lambda: fns.res_flat(wvec), 20),
-        ("one jvp matvec", lambda: matvec(v), 20),
-        ("PC build", lambda: fns.build_pc(wvec, cfl, axes=axes,
-                                          kappa=kappa), 5),
-        ("PC apply", lambda: precond(v), 20),
-        ("GMRES solve", lambda: sols.append(krylov.gmres(
-            matvec, -r, m=m, restarts=2,
-            tol=float(opts["ANKLinearSolveTol"]), precond=precond)), 3),
-    )
-    times = {}
-    for label, fn, reps in parts:
-        times[label] = time_ms(fn, reps=reps, warmup=1)
-        print(f"  {label}: {times[label]:.4f} ms (median of {reps})")
-    print(f"  GMRES: {sols[-1].iters} iterations, {sols[-1].matvecs} "
-          f"matvecs, linres {sols[-1].res_norm / sols[-1].b_norm:.3e}")
-
-    step = newton.make_ank_step(fns, opts)
-    return (profile_device(lambda: step(wvec, cfl, pc), "1 ANK step",
-                           "inviscid_residual_kernel"),
-            (times["PC build"], times["PC apply"]))
-
-
-def profile_device(run, label, kernel=None, host_ops=True):
-    """``run()`` under torch.profiler: its wall time, the device's busy
-    time, device ops and idle share, and the kernels that took most of the
-    device time. Returns the device ms a launch of ``kernel`` (a name in
-    the profile), if given: the kernel's own time, with no host time in it,
-    which CUDA events around a call hold where the host's call takes longer
-    than the kernel. ``host_ops=False`` traces the device only, for runs of
-    hundreds of thousands of ops, whose host events take minutes to
-    aggregate."""
-    from torch.profiler import ProfilerActivity, profile
-
-    torch.cuda.synchronize()
-    activities = ([ProfilerActivity.CPU] if host_ops else []) + [
-        ProfilerActivity.CUDA]
-    with profile(activities=activities) as prof:
-        t0 = time.perf_counter()
-        run()
-        torch.cuda.synchronize()
-        wall_us = (time.perf_counter() - t0) * 1e6
-    # host ops are left out; their kernels are listed themselves
-    rows = sorted(((e.self_device_time_total, e.count, e.key)
-                   for e in prof.key_averages()
-                   if e.device_type == torch.autograd.DeviceType.CUDA),
-                  reverse=True)
-    busy = sum(r[0] for r in rows)
-    n_ops = sum(r[1] for r in rows)
-    print(f"  profiler, {label}: wall {wall_us / 1e3:.3f} ms, device busy "
-          f"{busy / 1e3:.3f} ms in {n_ops} device ops, idle share "
-          f"{1.0 - busy / wall_us:.3f}")
-    for dev, count, key in rows[:12]:
-        print(f"    {dev / 1e3:9.3f} ms {count:7d}x  {key[:90]}")
-    if kernel is None:
-        return None
-    dev, count = next((d, c) for d, c, key in rows if kernel in key)
-    print(f"  {kernel}: {count} launches, {dev / 1e3 / count:.4f} ms of "
-          f"device time each")
-    return dev / 1e3 / count
 
 
 def small_adjoint(equation, device, funcs, w0=None, ap_changes=None,
@@ -1135,7 +887,7 @@ def adjoint_parity():
     """[15]: the small Euler adjoint through K2 and the small RANS-SA one
     through K1 on the card, against the CPU (f64, plain), and the RANS one
     against the card's plain route; returns the launches of each path."""
-    from adflow_torch.ops import cuda_inviscid, cuda_rans
+    from adflow_torch.ops import cuda_inviscid
 
     funcs = ["cl", "cd"]
     cpu, _, _, _, w0 = small_adjoint("euler", "cpu", funcs, **ADJ_EULER_OPTS)
@@ -1173,67 +925,6 @@ def adjoint_parity():
     return k1_rans + k1_route, k2
 
 
-def full_adjoint(solver):
-    """[16]: ``evalFunctionsSens`` of cl on the main path's solved wing,
-    40 GMRES iterations; its pieces timed, the dot-product identity at
-    full width and three GMRES iterations profiled. Returns the K2
-    launches of the call."""
-    from adflow_torch.adjoint import api as adj
-    from adflow_torch.ops import cuda_inviscid, cuda_rans
-    from adflow_torch.solvers.krylov import gmres
-
-    for k, v in FULL_ADJ_OPTS.items():
-        solver.setOption(k, v)
-    ap = solver.curAP
-    cuda_inviscid.LAUNCHES = cuda_rans.LAUNCHES = 0
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    sens = solver.evalFunctionsSens(ap, {}, ["cl"])[f"{ap.name}_cl"]
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    k2, k1 = cuda_inviscid.LAUNCHES, cuda_rans.LAUNCHES
-    info = solver.adjoint_info
-    rel_res = info.res_norm / info.b_norm
-    print(f"  evalFunctionsSens(cl): {wall:.3f} s; {info.iters} GMRES "
-          f"iterations to rel {rel_res:.3e}; dcl/dalpha {sens['alpha']!r}, "
-          f"dcl/dmach {sens['mach']!r}, |dcl/dxv| "
-          f"{float(np.linalg.norm(sens['xv']))!r}")
-    print(f"  K2 launches {k2} (expected 2: the vjp in w built once for the "
-          f"solve, the vjp in x and the design variables), K1 {k1}")
-    assert k2 == 2 and k1 == 0, (k2, k1)
-    assert info.iters == FULL_ADJ_OPTS["adjointMaxIter"]
-    assert np.isfinite(rel_res) and rel_res < 1.0
-    assert all(np.isfinite(sens[k]) for k in ("alpha", "mach"))
-    assert np.all(np.isfinite(sens["xv"]))
-
-    fns, nfns = solver._adjoint_fns(), solver._newton_fns()
-    wvec, xvec = solver._wx_vecs()
-    params = solver._ap_params(ap)
-    _, vjp_w = torch.func.vjp(lambda w: fns.res(w, xvec, params), wvec)
-    gen = torch.Generator(device=wvec.device).manual_seed(3)
-    v = torch.randn(wvec.shape, generator=gen, device=wvec.device)
-    precond = adj._transposed_line_pc(nfns, wvec)
-    parts = (
-        ("transposed PC build", lambda: adj._transposed_line_pc(nfns, wvec),
-         3),
-        ("transposed PC apply", lambda: precond(v), 10),
-        ("one vjp matvec", lambda: vjp_w(v), 10),
-    )
-    for label, fn, reps in parts:
-        print(f"  {label}: {time_ms(fn, reps=reps, warmup=1):.4f} ms "
-              f"(median of {reps})")
-    dot_identity(solver, 2, DOT_RTOL_F32)
-
-    rhs = torch.func.grad(lambda w: fns.funcs(w, xvec, params)["cl"])(wvec)
-
-    def three_iterations():
-        gmres(lambda u: vjp_w(u)[0], rhs, m=3, restarts=1, tol=0.0,
-              precond=precond)
-
-    profile_device(three_iterations, "3 adjoint GMRES iterations")
-    return k2
-
-
 def launches():
     """(K1, K2) launch counts."""
     from adflow_torch.ops import cuda_inviscid, cuda_rans
@@ -1246,13 +937,12 @@ def zero_launches():
     cuda_inviscid.LAUNCHES = cuda_rans.LAUNCHES = cuda_irs.LAUNCHES = 0
 
 
-def matrix_path(scalar_pc_ms):
+def matrix_path():
     """[17]: the default ANK solve of the main path's wing with matrix
     dissipation, MATRIX_STEPS steps from the free stream, exactly no kernel
     launch (the JAX package routes matrix dissipation and upwind before
-    its kernels); its pieces at the final state beside the scalar PC's of
-    [14], the upwind residual there, the peak device memory and one
-    profiled step."""
+    its kernels); its pieces at the final state, the upwind residual there,
+    the peak device memory and one profiled step."""
     import dataclasses
 
     from adflow_torch.api.solver import ADFLOW
@@ -1317,12 +1007,10 @@ def matrix_path(scalar_pc_ms):
     for label, fn, reps in parts:
         print(f"  {label}: {time_ms(fn, reps=reps, warmup=1):.4f} ms "
               f"(median of {reps})")
-    print(f"  [14]'s scalar PC at the scalar path's state: build "
-          f"{scalar_pc_ms[0]:.4f} ms, apply {scalar_pc_ms[1]:.4f} ms")
     r_up = up.res_flat(wvec)
     assert bool(torch.isfinite(r_up).all())
     step = newton.make_ank_step(fns, opts)
-    profile_device(lambda: step(wvec, cfl, pc), "1 ANK step (matrix)")
+    device_profile(lambda: step(wvec, cfl, pc), "1 ANK step (matrix)")
     torch.cuda.synchronize()
     peak = torch.cuda.max_memory_allocated() / 2**30
     k1, k2 = launches()
@@ -1600,13 +1288,13 @@ def plate_mixed(reference):
     return k1
 
 
-def sst_path(scalar_pc_ms):
+def sst_path():
     """[20]: the default ANK solve of the main path's mesh, viscous, with
     RANS and SST, SST_STEPS steps from the free stream: exactly no K1
     launch and K2 for every residual evaluation (the mean flow of a block
-    K1 declines); its pieces at the final state beside the SA-free scalar
-    PC of [14], the peak device memory, and one jvp matvec plus one PC
-    apply under the profiler. Returns the K2 launches."""
+    K1 declines); its pieces at the final state, the peak device memory,
+    and one jvp matvec plus one PC apply under the profiler. Returns the K2
+    launches."""
     from adflow_torch.api.solver import ADFLOW
     from adflow_torch.core.refstate import AeroProblem
     from adflow_torch.meshgen.analytic import wing_omesh
@@ -1672,15 +1360,13 @@ def sst_path(scalar_pc_ms):
     for label, fn, reps in parts:
         print(f"  {label}: {time_ms(fn, reps=reps, warmup=1):.4f} ms "
               f"(median of {reps})")
-    print(f"  [14]'s scalar PC (Euler, 5 equations): build "
-          f"{scalar_pc_ms[0]:.4f} ms, apply {scalar_pc_ms[1]:.4f} ms")
     assert launches()[0] == 0, launches()
 
     def matvec_and_pc():
         newton.pc_apply_vec(pc, fns.packer,
                             torch.func.jvp(fns.res_flat, (wvec,), (v,))[1])
 
-    profile_device(matvec_and_pc, "one jvp matvec and one PC apply (SST)")
+    device_profile(matvec_and_pc, "one jvp matvec and one PC apply (SST)")
     torch.cuda.synchronize()
     peak = torch.cuda.max_memory_allocated() / 2**30
     print(f"  peak device memory {peak:.3f} GiB")
@@ -1840,151 +1526,10 @@ def small_physics_parity():
     return k1, k2
 
 
-def bc_pass_checks(name):
-    """[31]: the BC pass kernel (``cuda_bc.fused_bc_pass``) and its jvp in
-    the state on the main path's wing at FULL_DIMS, for 5 (Euler) and 6
-    (SA) channels, each against the plain pass in float64 on the same
-    float32 inputs: every ghost within FULL_RTOL of its channel's largest
-    magnitude (the plain float32 pass's distance printed beside it); two
-    passes bitwise equal; the kernel's registers and its times (Euler, the
-    ANK path's; its jvp the matvec's). Returns its launches and times."""
-    from adflow_torch.ops import _nvcc, cuda_bc
-
-    n0 = cuda_bc.LAUNCHES
-    for line in _nvcc.ptxas_report(cuda_bc.SRC):
-        print(f"  {line}")
-    for nw in (6, 5):
-        w, m, ops, ref, winf = cuda_bc.sample_pass(FULL_DIMS, nw, "cuda:0")
-        gen = torch.Generator(device=w.device).manual_seed(nw)
-        v = torch.randn(w.shape, generator=gen, device=w.device)
-        m64 = m._replace(siE=m.siE.double(), sjE=m.sjE.double(),
-                         skE=m.skE.double())
-
-        def jvp(pass_fn, w, m, winf, v):
-            return torch.func.jvp(
-                lambda u: pass_fn(u, m, ops, ref, winf), (w,), (v,))[1]
-
-        got = cuda_bc.fused_bc_pass(w, m, ops, ref, winf)
-        again = cuda_bc.fused_bc_pass(w, m, ops, ref, winf)
-        tan = jvp(cuda_bc.fused_bc_pass, w, m, winf, v)
-        plain32 = cuda_bc.bc_pass_reference(w, m, ops, ref, winf)
-        exact = cuda_bc.bc_pass_reference(w.double(), m64, ops, ref,
-                                          winf.double())
-        exact_tan = jvp(cuda_bc.bc_pass_reference, w.double(), m64,
-                        winf.double(), v.double())
-        torch.cuda.synchronize()
-        rel, abs_err = rel_errors(exact, got)
-        rel_tan, _ = rel_errors(exact_tan, tan)
-        rel_plain, _ = rel_errors(exact, plain32)
-        same = bool(torch.equal(got, again))
-        print(f"  BC pass at {'x'.join(map(str, FULL_DIMS))}, nw {nw}: "
-              f"kernel vs float64 plain per-channel rel err "
-              f"{max(rel):.3e} (plain float32 {max(rel_plain):.3e}), max "
-              f"abs err {abs_err:.3e}; tangent {max(rel_tan):.3e} "
-              f"(tolerance {FULL_RTOL:g}); two passes bitwise equal {same}")
-        assert bool(torch.isfinite(got).all() and torch.isfinite(tan).all())
-        assert max(rel) < FULL_RTOL and max(rel_tan) < FULL_RTOL, \
-            (rel, rel_tan)
-        assert same, "BC kernel passes differ"
-    launches = cuda_bc.LAUNCHES - n0
-    # per pass: the clone and one launch a subface; the jvp clones both
-    times = kernel_times("BC pass", cuda_bc.fused_bc_pass,
-                         cuda_bc.bc_pass_reference, (w, m),
-                         (ops, ref, winf), cuda_bc.min_bytes(w), 0, name)
-    times["jvp_ms"] = time_ms(lambda: jvp(cuda_bc.fused_bc_pass, w, m,
-                                          winf, v))
-    times["plain_jvp_ms"] = time_ms(lambda: jvp(cuda_bc.bc_pass_reference,
-                                                w, m, winf, v))
-    print(f"  BC pass jvp {times['jvp_ms']:.4f} ms, plain jvp "
-          f"{times['plain_jvp_ms']:.4f} ms")
-    return launches, times
-
-
-def mg_kernel_checks():
-    """[32]: K1's coarse instantiation and the smoothing kernel at the
-    three levels' dims (``mg_timing.LEVELS``) against their float64 plain
-    versions, timed. Returns (K1 launches, smoothing launches, the
-    smoothing's readings by level, K1 coarse's readings by level)."""
-    from adflow_torch.ops import _nvcc, cuda_irs, cuda_rans, mg_timing
-
-    for line in _nvcc.ptxas_report(cuda_irs.SRC):
-        print(f"  {line}")
-    zero_launches()
-    device = torch.device("cuda", 0)
-    k1_times, irs_times = {}, {}
-    for dims in mg_timing.LEVELS:
-        key = "x".join(map(str, dims))
-        k1_times[key] = mg_timing.k1_coarse(dims, device)
-        irs_times[key] = mg_timing.smoothing(dims, device)
-    return cuda_rans.LAUNCHES, cuda_irs.LAUNCHES, irs_times, k1_times
-
-
-def kernel_times(label, fused, plain, tensors, consts, n_bytes, n_flop,
-                 name):
-    """Kernel and plain-version times (CUDA events, median of 20) and the
-    bound: the larger of bytes over the memory rate and operations over
-    the f32 rate."""
-    ms = time_ms(lambda: fused(*tensors, *consts))
-    plain_ms = time_ms(lambda: plain(*tensors, *consts))
-    bw, f32_peak = peaks(name)
-    t_bytes, t_flop = n_bytes / bw * 1e3, n_flop / f32_peak * 1e3
-    bound_ms = max(t_bytes, t_flop)
-    print(f"  {label} {ms:.4f} ms, plain {plain_ms:.4f} ms; bound "
-          f"{bound_ms:.4f} ms ({n_bytes / 1e6:.1f} MB at {bw / 1e12:.2f} "
-          f"TB/s -> {t_bytes:.4f} ms; {n_flop / 1e9:.3f} GFLOP at "
-          f"{f32_peak / 1e12:.0f} TFLOP/s -> {t_flop:.4f} ms)")
-    return dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                bound_by="bytes" if t_bytes >= t_flop else "operations")
-
-
-def cycle_breakdown(solver):
-    """One RK cycle's pieces timed alone (CUDA events), then two cycles
-    under torch.profiler: device time by kernel and the device's idle
-    share; returns K1's device ms a launch in them."""
-    from adflow_torch.physics.residual import block_residual, fill_halos
-    from adflow_torch.physics.sa import sa_destruction_diag
-    from adflow_torch.physics.thermo import pressure
-    from adflow_torch.physics.timestep import local_timestep
-    from adflow_torch.solvers.smoothers import rk_iteration
-
-    s = solver
-    cfl = float(s.options["CFL"])
-    wf = fill_halos(s.w_list, s.metrics_list, s.topo, s.ref, s.winf)
-    m, ex, por = s.metrics_list[0], s.extras_list[0], s.topo.blocks[0].por
-    parts = {
-        "fill_halos": lambda: fill_halos(s.w_list, s.metrics_list, s.topo,
-                                         s.ref, s.winf),
-        "block_residual (K1)": lambda: block_residual(wf[0], m, s.cfg, s.ref,
-                                                      ex, por=por),
-        "local_timestep": lambda: local_timestep(wf[0], pressure(wf[0]), m,
-                                                 cfl, s.cfg, s.ref),
-        "sa_destruction_diag": lambda: sa_destruction_diag(
-            wf[0], m, ex["walldist"]),
-        "rk_iteration (one cycle)": lambda: rk_iteration(
-            s.w_list, s.metrics_list, s.topo, s.cfg, s.ref, s.winf, cfl,
-            s.extras_list),
-    }
-    for label, fn in parts.items():
-        print(f"  {label}: {time_ms(fn, reps=10, warmup=2):.4f} ms")
-
-    def two_cycles():
-        w = s.w_list
-        for _ in range(2):
-            w, _ = rk_iteration(w, s.metrics_list, s.topo, s.cfg, s.ref,
-                                s.winf, cfl, s.extras_list)
-
-    return profile_device(two_cycles, "2 cycles", "rans_residual_kernel")
-
-
 # ---------------------------------------------------------------------------
 # [22]-[25]: the other solvers (multigrid, DADI, the AMG preconditioner,
 # unsteady, time spectral)
 # ---------------------------------------------------------------------------
-
-# [22]'s seconds a '3w' cycle on the H100 when the coarse levels ran the
-# plain residual and the plain smoothing sweeps
-MG_CYCLE_S_PLAIN = 3.45
-
 
 def mg_by_level(opts, rk_stages_only=False):
     """Residual evaluations, each a K1 launch (or with ``rk_stages_only``
@@ -1998,32 +1543,6 @@ def mg_by_level(opts, rk_stages_only=False):
                                      rk_stages_only)
 
 
-class K1ByLevel:
-    """Counts K1's launches by block dims and instantiation, wrapping
-    ``cuda_rans.fused_rans_residual`` (which ``physics/residual.py`` looks
-    up at each call) while in use, a graph's replays credited by
-    ``ReplayCredit``."""
-
-    def __enter__(self):
-        from adflow_torch.ops import cuda_rans
-        self.mod, self.orig, self.counts = cuda_rans, \
-            cuda_rans.fused_rans_residual, collections.Counter()
-
-        def counted(*args, coarse=False, **kw):
-            key = ("x".join(str(n - 4) for n in args[0].shape[:3]),
-                   "coarse" if coarse else "fine")
-            self.counts[key] += 1
-            return self.orig(*args, coarse=coarse, **kw)
-
-        cuda_rans.fused_rans_residual = counted
-        self.credit = ReplayCredit(self.counts).__enter__()
-        return self
-
-    def __exit__(self, *exc):
-        self.credit.__exit__(*exc)
-        self.mod.fused_rans_residual = self.orig
-
-
 def fmg_evals(infos):
     """Residual evaluations of the full-multigrid start: per coarse level
     solved, the Newton driver's free-stream and starting norms and five
@@ -2031,26 +1550,22 @@ def fmg_evals(infos):
     return sum(2 + RK_STAGES * i.iterations for i in infos)
 
 
-def drop_per_cycle(hist):
-    """The geometric mean factor of the mean-flow residual a cycle."""
-    return float((hist[-1, 0] / hist[0, 0]) ** (1.0 / max(len(hist) - 1, 1)))
-
-
-def mg_path(rk_summary):
-    """[22]: the full-multigrid start and MG_CYCLES '3w' cycles of the RK
-    path's RANS-SA wing through ADFLOW: K1 exactly on every level's
-    evaluations (the coarse levels through its coarse instantiation) and
-    the start's coarse solves (which run the fine configuration), K2
-    never, the smoothing kernel 3 launches a stage; one cycle under the
-    profiler; then the DADI smoother on the same wing, one K1 launch an
-    iteration. Returns the K1 launches of the multigrid run by level and
-    instantiation ({"<dims>_<fine|coarse>": launches}), its smoothing
-    launches and the K1 launches of the DADI run."""
+def mg_and_dadi():
+    """[22]: FAS multigrid on the RK path's RANS-SA wing through
+    ``ADFLOW.__call__`` under the '3w' defaults: the full-multigrid start,
+    then MG_CYCLES W-cycles. K1 exactly on the start's coarse solves'
+    evaluations (which run the fine configuration) and on every level's
+    evaluations of the cycles (the benchmark's launch rule), the smoothing
+    kernel 3 launches an RK stage of the cycles, the BC kernel one launch a
+    physical subface a pass, K2 never. Then the DADI smoother on the same
+    wing, one K1 launch an iteration. Returns the counters
+    (``trace.WORK``) the multigrid solve advanced and the K1 launches of
+    the DADI run."""
     from adflow_torch.api.solver import ADFLOW
     from adflow_torch.core.refstate import AeroProblem
     from adflow_torch.meshgen.analytic import wing_omesh
-    from adflow_torch.ops import cuda_irs
-    from adflow_torch.solvers import multigrid as mg
+    from adflow_torch.solvers.multigrid import parse_mg_cycle
+    from adflow_torch.utils import trace
 
     mesh = wing_omesh(ni=FULL_DIMS[0], nj=FULL_DIMS[1], nk=FULL_DIMS[2],
                       viscous=True)
@@ -2059,93 +1574,51 @@ def mg_path(rk_summary):
                     mesh=mesh)
     ap = AeroProblem(**M6)
     solver.setAeroProblem(ap)
-    start = {}
-    fmg_start = solver._fmg_start
-
-    def timed_start(opt):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        fmg_start(opt)
-        torch.cuda.synchronize()
-        start["s"] = time.perf_counter() - t0
-
-    solver._fmg_start = timed_start
     torch.cuda.synchronize()
-    zero_launches()
-    with K1ByLevel() as by_level:
-        t1 = time.perf_counter()
-        solver(ap)
-        torch.cuda.synchronize()
-        t2 = time.perf_counter()
-    k1, k2 = launches()
-    irs = cuda_irs.LAUNCHES
+    before = trace.work_counts()
+    t1 = time.perf_counter()
+    solver(ap)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    n = work_since(before)
     funcs = solver.evalFunctions(ap, {})
-    info, fmg = solver.solve_info, solver.fmg_info
+    info, fmg, opts = solver.solve_info, solver.fmg_info, solver.options
     hist = info.history
-    opts = solver.options
-    evals, stages = mg_by_level(opts), mg_by_level(opts, True)
     # the start solves the coarsest level first, then each finer one
+    coarsest = parse_mg_cycle(MG_OPTS["MGCycle"])[0] - 1
     levels = " and ".join(
-        f"{'x'.join(str(d // 2 ** (len(evals) - 1 - i)) for d in FULL_DIMS)}: "
+        f"{'x'.join(str(d // 2 ** (coarsest - i)) for d in FULL_DIMS)}: "
         f"{f.iterations} RK iterations, R {f.total_r0:.4e} -> "
         f"{f.total_r_final:.4e}{' (failed)' if f.failed else ''}"
         for i, f in enumerate(fmg))
-    print(f"  full-multigrid start {start['s']:.3f} s; {levels}"
+    print(f"  full-multigrid start: {levels}"
           f"{'; the free stream kept' if fmg[-1].failed else ''}")
-    cyc_s = (t2 - t1 - start["s"]) / info.iterations
-    for it in range(info.iterations):
-        print(f"  cycle {it + 1:3d}: resrho {hist[it, 0]:.6e} resturb "
-              f"{hist[it, 1]:.6e}")
-    print(f"  {info.iterations} W-cycles in {t2 - t1 - start['s']:.3f} s: "
-          f"{cyc_s * 1e3:.3f} ms per cycle ({MG_CYCLE_S_PLAIN} s with the "
-          f"coarse levels plain), residual drop "
-          f"{drop_per_cycle(hist):.4f} per cycle ([5]'s RK: "
-          f"{rk_summary['ms']:.3f} ms per cycle, drop "
-          f"{rk_summary['drop']:.4f} per cycle)")
-    print(f"  cl {funcs['m6_cl']!r}, cd {funcs['m6_cd']!r}")
-    per_cycle = sum(evals)
-    expected = fmg_evals(fmg) + per_cycle * info.iterations
-    irs_expected = 3 * sum(stages) * info.iterations
-    # the cycles' launches by level (the coarse instantiation below the
-    # fine level), the start's at its levels' dims with the fine one
-    dims = ["x".join(str(d // 2 ** lev) for d in FULL_DIMS)
-            for lev in range(len(evals))]
-    want_by_level = {(dims[lev], "coarse" if lev else "fine"):
-                     n * info.iterations for lev, n in enumerate(evals)}
-    for i, f in enumerate(fmg):
-        key = (dims[len(evals) - 1 - i], "fine")
-        want_by_level[key] = want_by_level.get(key, 0) + fmg_evals([f])
-    print(f"  K1 launches {k1} (expected {expected}: the start's "
-          f"{fmg_evals(fmg)} = sum over its coarse levels of 2 + "
-          f"{RK_STAGES} x RK iterations, + {per_cycle} evaluations a cycle "
-          f"on the levels {evals}, RK stages {stages} and the forced "
-          f"and restricted residuals), K2 launches {k2} (expected 0); "
-          f"smoothing launches {irs} (expected {irs_expected}: 3 a stage)")
-    for key in sorted(set(by_level.counts) | set(want_by_level)):
-        print(f"  K1 at {key[0]}, {key[1]} instantiation: "
-              f"{by_level.counts.get(key, 0)} launches (expected "
-              f"{want_by_level.get(key, 0)})")
+    print(f"  {info.iterations} W-cycles (start included) in "
+          f"{t2 - t1:.3f} s: resrho {hist[0, 0]:.6e} -> {hist[-1, 0]:.6e}; "
+          f"cl {funcs['m6_cl']!r}, cd {funcs['m6_cd']!r}")
+    evals, stages = mg_by_level(opts), mg_by_level(opts, True)
+    cycles = info.iterations
+    # a halo fill (two BC passes) a residual evaluation and one more an RK
+    # iteration, on every level
+    fills = (fmg_evals(fmg) + sum(f.iterations for f in fmg)
+             + (sum(evals) + sum(stages) // RK_STAGES) * cycles)
+    want = {"k1_launches": fmg_evals(fmg) + sum(evals) * cycles,
+            "k2_launches": 0, "bc_launches": 2 * n_physical(solver) * fills,
+            "irs_launches": 3 * sum(stages) * cycles}
+    print(f"  launches {n} (expected {want}: the start's K1 "
+          f"{fmg_evals(fmg)} = the sum over its coarse levels of 2 + "
+          f"{RK_STAGES} x RK iterations, + {sum(evals)} a cycle on the "
+          f"levels {evals}; the smoothing 3 an RK stage, {stages} a cycle; "
+          f"the BC kernel {n_physical(solver)} a pass, two passes a fill, "
+          f"a fill an evaluation and one more an RK iteration)")
     # the start solves the coarsest level, then the next, and keeps the
     # free stream once a level fails
-    assert solver.dtype == torch.float32 and len(fmg) in (1, 2)
-    assert len(fmg) == 2 or fmg[0].failed
+    assert solver.dtype == torch.float32
+    assert len(fmg) == 2 or (len(fmg) == 1 and fmg[0].failed)
     assert hist.shape == (MG_CYCLES, 2) and np.all(np.isfinite(hist))
     assert np.isfinite(funcs["m6_cl"]) and np.isfinite(funcs["m6_cd"])
-    assert k1 == expected and k2 == 0, (k1, expected, k2)
-    assert by_level.counts == want_by_level, (by_level.counts,
-                                              want_by_level)
-    assert irs == irs_expected, (irs, irs_expected)
-
-    levels_ = solver._mg_levels(3)
-    irs_eps = max(float(opts["smoothParameter"]) - 1.0, 0.0)
-    profile_device(lambda: mg.fas_cycle(
-        solver.w_list, levels_, solver.cfg, solver.ref, solver.winf,
-        float(opts["CFL"]), cycle="w", irs_eps=irs_eps,
-        cfl_coarse=float(opts["CFLCoarse"]),
-        vis2_coarse=float(opts["vis2Coarse"]),
-        coarse_disc=str(opts["coarseDiscretization"])),
-        "one 3w cycle", "rans_residual_kernel", host_ops=False)
-    del solver, levels_
+    assert {k: n[k] for k in want} == want, (n, want)
+    del solver
 
     solver = ADFLOW(options=dict(solver_options(DADI_CYCLES),
                                  smoother="DADI"), mesh=mesh)
@@ -2166,17 +1639,16 @@ def mg_path(rk_summary):
           f"iteration), K2 {k2_dadi}")
     assert np.all(np.isfinite(info.history))
     assert k1_dadi == info.iterations and k2_dadi == 0, (k1_dadi, k2_dadi)
-    return ({f"{d}_{kind}": n for (d, kind), n in by_level.counts.items()},
-            irs, k1_dadi)
+    return n, k1_dadi
 
 
-def amg_path(scalar_pc_ms):
+def amg_path():
     """[23]: AMG_STEPS ANK steps of the main path's Euler wing from the
-    free stream with the multigrid (AMG) preconditioner, K2 exactly as in
-    [12]; the AMG PC's build and apply timed beside [14]'s line PC; the
-    peak device memory; then ``evalFunctionsSens(cl)`` with the transposed
-    multigrid PC, AMG_ADJ_ITERS GMRES iterations, K2 exactly 2. Returns the
-    K2 launches of the ANK steps and of the adjoint."""
+    free stream with the multigrid (AMG) preconditioner, K2 exactly 2 + the
+    steps' evaluations; the AMG PC's build and apply timed; the peak device
+    memory; then ``evalFunctionsSens(cl)`` with the transposed multigrid
+    PC, AMG_ADJ_ITERS GMRES iterations, K2 exactly 2. Returns the K2
+    launches of the ANK steps and of the adjoint."""
     from adflow_torch.api.solver import ADFLOW
     from adflow_torch.core.refstate import AeroProblem
     from adflow_torch.meshgen.analytic import wing_omesh
@@ -2203,7 +1675,8 @@ def amg_path(scalar_pc_ms):
           f"{t2 - t1:.3f} s: {(t2 - t1) / len(info.steps) * 1e3:.3f} ms per "
           f"step; Krylov iterations "
           f"{[int(r.stats[4]) for r in info.steps]}")
-    print(f"  K2 launches {k2} (expected {expected}: [12]'s formula), K1 "
+    print(f"  K2 launches {k2} (expected {expected}: 2 for the Newton "
+          f"driver's norms + the steps' evaluations), K1 "
           f"{k1}")
     assert len(info.steps) == AMG_STEPS and not info.failed
     assert np.all(np.isfinite(info.history))
@@ -2228,8 +1701,7 @@ def amg_path(scalar_pc_ms):
     print(f"  AMG PC ({kw['amg_levels']} levels: "
           f"{' / '.join('x'.join(map(str, o.D.shape[:3])) for o in pc[0].ops)}"
           f"): build {build_ms:.4f} ms (median of 3), apply {apply_ms:.4f} "
-          f"ms (median of 5); [14]'s line PC: build {scalar_pc_ms[0]:.4f} "
-          f"ms, apply {scalar_pc_ms[1]:.4f} ms")
+          f"ms (median of 5)")
     torch.cuda.synchronize()
     peak = torch.cuda.max_memory_allocated() / 2**30
     print(f"  peak device memory {peak:.3f} GiB")
@@ -2745,8 +2217,8 @@ def overset_path():
         zero_launches()
         t0 = time.perf_counter()
         if i == OVS_STEPS[0] - 1:
-            profile_device(lambda: solver(ap), "1 ANK step (overset RANS-SA)",
-                           "rans_residual_kernel", host_ops=False)
+            device_profile(lambda: solver(ap),
+                           "1 ANK step (overset RANS-SA)")
         else:
             solver(ap)
         torch.cuda.synchronize()
@@ -2946,7 +2418,7 @@ def small_overset_parity():
     from adflow_torch.overset.assembly import (
         build_zipper_gaps, overlap_surface_weights)
     from adflow_torch.physics.surface import (
-        build_wall_patches, cost_functions, integrate_forces)
+        build_wall_patches, integrate_forces)
 
     k1 = k2 = 0
     euler = euler_options(1)
@@ -3266,6 +2738,8 @@ def outer_solves(solver, cl_ref):
 
     os.makedirs(DESIGN_DIR, exist_ok=True)
     ap = solver.curAP
+    for k, v in FULL_ADJ_OPTS.items():
+        solver.setOption(k, v)
     zero_launches()
     t0 = time.perf_counter()
     est = solver.solveErrorEstimate(ap, "cl")
@@ -3647,46 +3121,53 @@ def dist_path(solver):
              "stacked_small_cases": k2_small})
 
 
-def solver_slice(phase, scalar_pc_ms):
-    """[22]-[25]; returns the K1, K2 and smoothing launches of their main
-    paths, by path (K1's multigrid run by level and instantiation)."""
+def solver_slice(phase):
+    """[22]-[25]; returns the K1, K2 and smoothing launches of their paths,
+    by path."""
     phase(f"[22] the slice at full width: the full-multigrid start and "
           f"{MG_CYCLES} '3w' cycles of the {'x'.join(map(str, FULL_DIMS))} "
           f"RANS-SA wing, then the DADI smoother")
-    k1_mg, irs_mg, k1_dadi = mg_path(RK_SUMMARY)
+    mg, k1_dadi = mg_and_dadi()
     phase(f"[23] the AMG preconditioner at full width: {AMG_STEPS} ANK steps "
           f"and the adjoint of cl on the {'x'.join(map(str, FULL_DIMS))} "
           f"Euler wing")
-    k2_amg, k2_amg_adj = amg_path(scalar_pc_ms)
+    k2_amg, k2_amg_adj = amg_path()
     phase(f"[24] unsteady (BDF2, RK4) and time spectral on the "
           f"{'x'.join(map(str, FULL_DIMS))} Euler wing")
     k2_unsteady = unsteady_path()
     phase("[25] small cases, card against CPU: multigrid and its start, "
           "DADI, the AMG ANK step and adjoint, BDF2, RK4, time spectral")
     k1_small, k2_small, irs_small = small_solvers_parity()
-    return ({**{f"mg_rans_wing_{k}": n for k, n in k1_mg.items()},
+    return ({"mg_3w_rans_wing_256x64x64": mg["k1_launches"],
              "dadi_rans_wing_256x64x64": k1_dadi,
              "solvers_small_cases": k1_small},
             {"amg_ank_euler_wing_256x64x64": k2_amg,
              "amg_adjoint_euler_wing_256x64x64": k2_amg_adj,
              "unsteady_ts_euler_wing_256x64x64": k2_unsteady,
              "solvers_small_cases": k2_small},
-            {"mg_rans_wing_256x64x64": irs_mg,
+            {"mg_3w_rans_wing_256x64x64": mg["irs_launches"],
              "solvers_small_cases": irs_small})
 
 
 class Phases:
-    """Prints each phase's heading and, at the next one, its wall time."""
+    """Prints each phase's heading and, at the next one, its wall time;
+    keeps the BC kernel's launches by phase (``bc_launches``, keyed by the
+    phase's number; nothing here sets its counter back)."""
 
     def __init__(self):
-        self.t0 = None
+        self.t0 = self.key = None
+        self.bc_launches = {}
 
     def __call__(self, heading=None):
+        from adflow_torch.ops import cuda_bc
         if self.t0 is not None:
             print(f"  (phase wall time {time.perf_counter() - self.t0:.2f} s)")
+            if cuda_bc.LAUNCHES > self.bc0:
+                self.bc_launches[self.key] = cuda_bc.LAUNCHES - self.bc0
         self.t0 = time.perf_counter() if heading else None
         if heading:
             print(heading)
+            self.key, self.bc0 = heading.split()[0], cuda_bc.LAUNCHES
 
 
 def main() -> int:
@@ -3694,85 +3175,26 @@ def main() -> int:
         print("chip_smoke: no CUDA device; this script runs on the card",
               file=sys.stderr)
         return 1
-    from adflow_torch.ops import (_nvcc, cuda_bc, cuda_inviscid, cuda_irs,
-                                  cuda_rans, mg_timing)
+    from adflow_torch.ops import _nvcc, cuda_bc, cuda_inviscid, cuda_irs, \
+        cuda_rans
 
     t_start = time.perf_counter()
-    card = card_line()
     name = torch.cuda.get_device_name(0)
+    card = f"{name}, {power_limit()}"
     print(card)
-    print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, {name}")
+    print(f"torch {torch.__version__}, CUDA {torch.version.cuda}")
     phase = Phases()
 
-    phase("[1] build the four kernels, one nvcc each, in parallel")
-    for lib in _nvcc.build_all([cuda_rans.SRC, cuda_inviscid.SRC,
-                                cuda_bc.SRC, cuda_irs.SRC]):
+    phase("[1] build the four kernels, one nvcc each, in parallel; their "
+          "registers, shared memory and spills")
+    srcs = [cuda_rans.SRC, cuda_inviscid.SRC, cuda_bc.SRC, cuda_irs.SRC]
+    for src, lib in zip(srcs, _nvcc.build_all(srcs)):
         print(f"  built {lib.relative_to(_nvcc.BUILD_DIR.parents[1])}")
-
-    phase("[2] K1 against its plain version on small blocks; two launches "
-          "bitwise equal")
-    for dims in ((24, 12, 8), (23, 11, 7)):
-        tensors, consts = cuda_rans.sample_operands(dims, "cuda:0")
-        compare_kernel("x".join(map(str, dims)), tensors, consts, SMALL_RTOL)
-    check_bitwise(tensors, consts)
-
-    phase("[3] gradient through the kernel's autograd.Function")
-    check_gradient(*cuda_rans.sample_operands((24, 12, 8), "cuda:0"))
-
-    phase("[31] the BC pass kernel and its jvp against the float64 plain "
-          f"pass on the {'x'.join(map(str, FULL_DIMS))} wing; its times")
-    bc_checks, bc_times = bc_pass_checks(name)
-
-    phase("[32] the multigrid levels' kernels at "
-          f"{', '.join('x'.join(map(str, d)) for d in mg_timing.LEVELS)}: K1's "
-          "coarse instantiation and the residual smoothing against their "
-          "float64 plain versions; their times")
-    k1_mg_checks, irs_checks, irs_times, k1_coarse_times = mg_kernel_checks()
+        for line in _nvcc.ptxas_report(src):
+            print(f"    {line}")
 
     phase("[4] small RK solve: card against CPU")
     small_solve_parity()
-
-    phase("[5] RK path: ADFLOW RANS-SA RK solve of the "
-          f"{'x'.join(map(str, FULL_DIMS))} wing")
-    solver, k1_rk, bc_rk = main_path()
-
-    phase("[6] K1 against its plain version at the full size")
-    ni, nj, nk = FULL_DIMS
-    compare_kernel("full size, perturbed state",
-                   *cuda_rans.sample_operands(FULL_DIMS, "cuda:0"),
-                   FULL_RTOL)
-    tensors, consts = main_path_operands(solver)
-    max_rel, max_abs, flux_rel = compare_post_solve(tensors, consts)
-
-    phase("[7] K1's plan and build, its times (CUDA events, median of 20 "
-          "after warm-up)")
-    plan = cuda_rans.k1_tile_plan(
-        ni, nj, nk, n_sm=torch.cuda.get_device_properties(0)
-        .multi_processor_count)
-    print(f"  tile plan at {ni}x{nj}x{nk}: {plan}")
-    for line in _nvcc.ptxas_report(cuda_rans.SRC):
-        print(f"  {line}")
-    k1_times = kernel_times(
-        "K1", cuda_rans.fused_rans_residual,
-        cuda_rans.rans_residual_reference, tensors, consts,
-        cuda_rans.min_bytes(ni, nj, nk), cuda_rans.flop_count(ni, nj, nk),
-        name)
-
-    phase("[8] where one RK cycle's time goes")
-    k1_times["profiled_ms"] = cycle_breakdown(solver)
-    del solver, tensors
-    # the post-solve check of [6], held until the times are printed
-    assert flux_rel < FLUX_RTOL, f"K1 disagrees with its plain version: " \
-        f"{flux_rel:.3e} of the flux scale"
-
-    phase("[9] K2 against its plain version, on an odd block with a ragged "
-          "segment; two launches bitwise equal")
-    for dims in K2_SMALL_DIMS:
-        compare_k2("x".join(map(str, dims)),
-                   *cuda_inviscid.sample_operands(dims, "cuda:0"), SMALL_RTOL)
-    compare_k2("full size, perturbed state",
-               *cuda_inviscid.sample_operands(FULL_DIMS, "cuda:0"), FULL_RTOL)
-    check_k2_plan_and_bitwise(*K2_ODD)
 
     phase("[10] jvp and vjp through both kernels on the card")
     check_derivatives()
@@ -3780,39 +3202,27 @@ def main() -> int:
     phase("[11] small Euler ANK solve: card against CPU")
     small_ank_parity()
 
-    phase("[12] main path: ADFLOW default ANK solve of the Euler "
-          f"{'x'.join(map(str, FULL_DIMS))} wing")
-    solver, k2_ank, bc_ank = ank_main_path()
-    tensors, consts = k2_operands(solver)
-    k2_abs, k2_flux_rel = compare_k2_post_solve(tensors, consts)
+    phase("[12] the state of [16] and [28]-[30]: ADFLOW's default ANK solve "
+          f"of the Euler {'x'.join(map(str, FULL_DIMS))} wing")
+    solver = solved_euler_wing()
+
+    phase("[5] the cells' kernels at the cells' shapes against their plain "
+          "versions, and the RANS-SA RK solve of the "
+          f"{'x'.join(map(str, FULL_DIMS))} wing through ADFLOW")
+    rk, checks = main_path_kernels(solver)
 
     phase("[13] RANS-SA ANK path: the "
           f"{'x'.join(map(str, RANS_ANK_DIMS))} wing through K1")
     k1_ank = rans_ank_path()
 
-    phase("[14] K2's plan and build, its times (CUDA events, median of 20 "
-          "after warm-up) and one ANK step's pieces")
-    k2_plan = cuda_inviscid.k2_tile_plan(
-        ni, nj, nk, n_sm=torch.cuda.get_device_properties(0)
-        .multi_processor_count)
-    print(f"  tile plan at {ni}x{nj}x{nk}: {k2_plan}")
-    for line in _nvcc.ptxas_report(cuda_inviscid.SRC):
-        print(f"  {line}")
-    k2_times = kernel_times(
-        "K2", cuda_inviscid.fused_inviscid_residual,
-        cuda_inviscid.inviscid_residual_reference, tensors, consts,
-        cuda_inviscid.min_bytes(ni, nj, nk),
-        cuda_inviscid.flop_count(ni, nj, nk), name)
-    k2_times["profiled_ms"], scalar_pc_ms = ank_breakdown(solver)
-
     phase("[15] small adjoints: card against CPU, through K2 and K1")
     k1_adj, k2_adj = adjoint_parity()
 
-    phase("[16] main path's adjoint: evalFunctionsSens of cl on the "
+    phase("[16] the dot-product identity at full width on the "
           f"{'x'.join(map(str, FULL_DIMS))} Euler wing")
-    k2_full_adj = full_adjoint(solver)
+    dot_identity(solver, 2, DOT_RTOL_F32)
 
-    # [28] and [29] reuse [16]'s solver; [29]'s float64 solveCL runs on the
+    # [28] and [29] reuse [12]'s solver; [29]'s float64 solveCL runs on the
     # CPU in a process of its own meanwhile
     with ProcessPoolExecutor(
             1, mp_context=multiprocessing.get_context("spawn")) as pool:
@@ -3830,12 +3240,12 @@ def main() -> int:
           "rank: the stacked residual, exchange, RK and ANK steps; the small "
           "wing card against CPU")
     k1_dist, k2_dist = dist_path(solver)
-    del solver, tensors
+    del solver
 
     phase("[17] the slice at full width: matrix dissipation on the "
           f"{'x'.join(map(str, FULL_DIMS))} Euler wing, {MATRIX_STEPS} ANK "
           "steps, no kernel")
-    k1_matrix, k2_matrix = matrix_path(scalar_pc_ms)
+    k1_matrix, k2_matrix = matrix_path()
 
     # [19]'s float64 reference on the CPU, in a process of its own that
     # runs while the card works through [18] and [19]
@@ -3854,13 +3264,13 @@ def main() -> int:
     phase("[20] the slice at full width: SST on the "
           f"{'x'.join(map(str, FULL_DIMS))} viscous wing, {SST_STEPS} ANK "
           "steps, K2 for the mean flow")
-    k2_sst = sst_path(scalar_pc_ms)
+    k2_sst = sst_path()
 
     phase("[21] small cases, card against CPU: SST, the SA variants, wall "
           "functions, grid motion, the low-speed preconditioner, actuator "
           "sources, the grid-motion adjoint")
     k1_phys, k2_phys = small_physics_parity()
-    k1_new, k2_new, irs_new = solver_slice(phase, scalar_pc_ms)
+    k1_new, k2_new, irs_new = solver_slice(phase)
     phase("[26] overset at full width: the viscous NACA 0012 O-mesh at "
           f"{'x'.join(map(str, (OVS_NEAR['ni'], OVS_NEAR['nj'], OVS_NEAR['nk'])))}"
           " in its generated background, RANS-SA: ANK steps, the shape "
@@ -3870,76 +3280,52 @@ def main() -> int:
           "airfoil in its background, the zipper, a user surface, cperror2, "
           "the overset adjoint, a warp with the quick wall distance")
     k1_ovs_small, k2_ovs_small = small_overset_parity()
-    k1_new.update(k1_dist)
-    k2_new.update(k2_dist)
-    k1_new["overset_rans_airfoil_256x64x64_in_background"] = k1_ovs
-    k1_new["overset_small_cases"] = k1_ovs_small
-    k2_new["overset_rans_airfoil_256x64x64_in_background"] = 0
-    k2_new["overset_small_cases"] = k2_ovs_small
     phase()
     print(f"total wall time {time.perf_counter() - t_start:.1f} s")
 
+    k1_by_path = {"rk_rans_wing_256x64x64": rk["k1_launches"],
+                  "kernel_checks": checks["k1_launches"] - rk["k1_launches"],
+                  "ank_rans_wing_64x24x16": k1_ank,
+                  "adjoint_rans_wing_16x8x8": k1_adj,
+                  "matrix_euler_wing_256x64x64": k1_matrix,
+                  "upwind_matrix_wing_16x8x8": k1_small,
+                  "mixed_rans_plate_16x12": k1_plate,
+                  "sst_wing_256x64x64": 0,
+                  "physics_small_cases": k1_phys, **k1_new, **k1_dist,
+                  "overset_rans_airfoil_256x64x64_in_background": k1_ovs,
+                  "overset_small_cases": k1_ovs_small}
+    k2_by_path = {"kernel_checks": checks["k2_launches"],
+                  "adjoint_euler_wing_16x8x8": k2_adj,
+                  "matrix_euler_wing_256x64x64": k2_matrix,
+                  "upwind_matrix_wing_16x8x8": k2_small,
+                  "mixed_euler_wing_16x8x8": k2_mixed,
+                  "sst_wing_256x64x64": k2_sst,
+                  "physics_small_cases": k2_phys, **k2_new, **k2_dist,
+                  "files_euler_wing_256x64x64": k2_files,
+                  "error_estimate_euler_wing_256x64x64": k2_err,
+                  "solve_cl_euler_wing_16x8x8": k2_cl,
+                  "run_control_small_cases": k2_ctl,
+                  "overset_rans_airfoil_256x64x64_in_background": 0,
+                  "overset_small_cases": k2_ovs_small}
+    kernels = [
+        ("fused_rans_residual", "adflow_torch/csrc/rans_residual.cu",
+         "adflow_tpu/ops/pallas_rans.py:58", "one pass, i-march",
+         k1_by_path),
+        ("fused_inviscid_residual", "adflow_torch/csrc/inviscid_residual.cu",
+         "adflow_tpu/ops/pallas_residual.py:45", "one pass, i-march",
+         k2_by_path),
+        ("fused_bc_pass", "adflow_torch/csrc/bc_ghost.cu", "none",
+         "one launch a subface, its tangent from the same source",
+         phase.bc_launches),
+        ("residual_averaging", "adflow_torch/csrc/residual_averaging.cu",
+         "none", "one launch an axis, a thread a line and its channels",
+         {**irs_new, "kernel_checks": checks["irs_launches"]})]
     print(card)
     print(json.dumps({"kernels": [
-        {"name": "fused_rans_residual", "route": "cuda",
-         "source": "adflow_torch/csrc/rans_residual.cu",
-         "replaces": "adflow_tpu/ops/pallas_rans.py:58",
-         "design": "one pass, i-march",
-         "launches": (k1_rk + k1_ank + k1_adj + k1_matrix + k1_small
-                      + k1_plate + k1_phys + sum(k1_new.values())
-                      + k1_mg_checks),
-         "launches_by_path": {"rk_rans_wing_256x64x64": k1_rk,
-                              "coarse_checks_mg_levels": k1_mg_checks,
-                              "ank_rans_wing_64x24x16": k1_ank,
-                              "adjoint_rans_wing_16x8x8": k1_adj,
-                              "matrix_euler_wing_256x64x64": k1_matrix,
-                              "upwind_matrix_wing_16x8x8": k1_small,
-                              "mixed_rans_plate_16x12": k1_plate,
-                              "sst_wing_256x64x64": 0,
-                              "physics_small_cases": k1_phys, **k1_new},
-         "max_abs_err": max_abs, "max_rel_err": flux_rel,
-         "max_rel_err_of_residual": max_rel, **k1_times,
-         "coarse_by_level": k1_coarse_times, "library_ms": None},
-        {"name": "fused_inviscid_residual", "route": "cuda",
-         "source": "adflow_torch/csrc/inviscid_residual.cu",
-         "replaces": "adflow_tpu/ops/pallas_residual.py:45",
-         "design": "one pass, i-march",
-         "launches": (k2_ank + k2_adj + k2_full_adj + k2_matrix + k2_small
-                      + k2_mixed + k2_sst + k2_phys + sum(k2_new.values())
-                      + k2_files + k2_err + k2_cl + k2_ctl),
-         "launches_by_path": {"ank_euler_wing_256x64x64": k2_ank,
-                              "adjoint_euler_wing_16x8x8": k2_adj,
-                              "adjoint_euler_wing_256x64x64": k2_full_adj,
-                              "matrix_euler_wing_256x64x64": k2_matrix,
-                              "upwind_matrix_wing_16x8x8": k2_small,
-                              "mixed_euler_wing_16x8x8": k2_mixed,
-                              "sst_wing_256x64x64": k2_sst,
-                              "physics_small_cases": k2_phys, **k2_new,
-                              "files_euler_wing_256x64x64": k2_files,
-                              "error_estimate_euler_wing_256x64x64": k2_err,
-                              "solve_cl_euler_wing_16x8x8": k2_cl,
-                              "run_control_small_cases": k2_ctl},
-         "max_abs_err": k2_abs, "max_rel_err": k2_flux_rel, **k2_times,
-         "library_ms": None},
-        {"name": "fused_bc_pass", "route": "cuda",
-         "source": "adflow_torch/csrc/bc_ghost.cu", "replaces": "none",
-         "design": "one launch a subface, its tangent from the same source",
-         "launches": bc_checks + bc_rk + bc_ank,
-         "launches_by_path": {"bc_pass_checks_wing_256x64x64": bc_checks,
-                              "rk_rans_wing_256x64x64": bc_rk,
-                              "ank_euler_wing_256x64x64": bc_ank},
-         **bc_times, "library_ms": None},
-        {"name": "residual_averaging", "route": "cuda",
-         "source": "adflow_torch/csrc/residual_averaging.cu",
-         "replaces": "none",
-         "design": "one launch an axis, a thread a line and its channels",
-         "launches": irs_checks + sum(irs_new.values()),
-         "launches_by_path": {"checks_mg_levels": irs_checks, **irs_new},
-         "max_rel_err": max(t["rel_err"] for t in irs_times.values()),
-         **{k: irs_times["x".join(map(str, FULL_DIMS))][k]
-            for k in ("ms", "plain_ms", "bound_ms")},
-         "by_level": irs_times, "library_ms": None},
-    ]}))
+        {"name": kname, "route": "cuda", "source": source,
+         "replaces": replaces, "design": design,
+         "launches": sum(by_path.values()), "launches_by_path": by_path}
+        for kname, source, replaces, design, by_path in kernels]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
         "count": torch.cuda.device_count()}}))

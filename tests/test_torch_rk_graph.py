@@ -118,9 +118,9 @@ class StandInGraph:
         if self.fresh:
             self.fresh = False
             return
-        before = rk_graph._counts()
+        before = trace.work_counts()
         self.fn()
-        rk_graph._set_counts(before)
+        trace.set_work_counts(before)
 
 
 def stand_in_graph_of(fn, slot):

@@ -22,11 +22,11 @@ import torch  # noqa: E402
 from adflow_torch.api.solver import ADFLOW  # noqa: E402
 from adflow_torch.core.refstate import AeroProblem  # noqa: E402
 from adflow_torch.meshgen.analytic import wing_omesh  # noqa: E402
-from adflow_torch.utils.timing import card_line  # noqa: E402
+from benchmark.harness import power_limit  # noqa: E402
 
 
 def main(steps: int = 30) -> None:
-    print(card_line())
+    print(f"{torch.cuda.get_device_name(0)}, {power_limit()}")
     solver = ADFLOW(options={"equationType": "euler", "nCycles": steps,
                              "L2Convergence": 1e-12,
                              "printIterations": False,
